@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from zlibng_tpu_torch/csrc with nvcc, holds each
-kernel (K1 probe sweep, K2 parse walk) against its plain PyTorch version at
-the main path's shapes, then drives the main path, compress_cuda at levels
-6 and 9 on a seeded corpus of at least 8 MiB, and checks that zlib decodes
-it, that it equals the port's CPU output (on a 1 MiB prefix and on the
-whole corpus) and that the run went through both kernels, then profiles
-one lane group. Prints per-kernel timings, a `kernels` JSON line, the
+Builds the CUDA kernels from zlibng_tpu_torch/csrc with nvcc, then drives
+the main path first, compress_cuda at levels 6 and 9 on a seeded corpus of
+at least 8 MiB, and checks that zlib decodes it, that it equals the port's
+CPU output (on a 1 MiB prefix and on the whole corpus) and that the run
+went through both kernels. Then it holds each kernel (K1 probe sweep, K2
+parse walk) against its plain PyTorch version at the main path's shapes
+(K2 also on raw steps, on step arrays that defeat its speculation or test
+its step arithmetic, and on edge bounds), and last runs torch.profiler:
+K2's device time by phase and one lane group of the main path. Prints
+per-kernel timings, a `kernels` JSON line, the
 card's name and power limit, and as its last line
 {"ok": true, "device": {...}}. Exits non-zero, without that line, when
 any phase fails or no CUDA device is present. Imports nothing of JAX.
@@ -160,37 +163,166 @@ def check_k1(lanes: torch.Tensor, rows: list) -> None:
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by))
 
 
-def check_k2(lanes: torch.Tensor, rows: list) -> None:
+def device_ms(fn, reps: int, match: str) -> dict | None:
+    """Per-call device time (ms) of each CUDA kernel whose name holds
+    `match`, from torch.profiler over reps warm calls; None if the profiler
+    saw no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in p.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and match in e.name):
+            name = e.name.split("::")[-1].split("(")[0]
+            out[name] = out.get(name, 0.0) + e.device_time / 1e3 / reps
+    return out or None
+
+
+def _k2_case(name: str, step: torch.Tensor, bounds: torch.Tensor,
+             reps: int = 20) -> dict:
+    """Holds K2 exactly equal to its plain version on one input, on an
+    output block poisoned beforehand so that an unwritten byte shows, and
+    times both per call between CUDA events."""
+    from zlibng_tpu_torch.ops import parse
+    B, N = step.shape
+    # a freed block of the output's size, full of 0xAB, for sel to reuse
+    torch.full((B, N), 0xAB, dtype=torch.uint8, device=step.device)
+    ks, stats = parse._parse_select_cuda(step, bounds)
+    ps = parse._parse_select_plain(step, bounds)
+    torch.cuda.synchronize()
+    top = int(ks.view(torch.uint8).max())
+    if ks.dtype != torch.bool or top > 1:
+        raise AssertionError(f"K2 {name}: mask is not 0/1 bool "
+                             f"({ks.dtype}, max byte {top})")
+    err = int((ks.long() - ps.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"K2 {name}: kernel != plain (max abs err {err}, "
+                             f"{int((ks != ps).sum())} positions differ)")
+    stops = int(ps.sum())
+    ms = timed(lambda: parse._parse_select_cuda(step, bounds), reps)
+    plain_ms = timed(lambda: parse._parse_select_plain(step, bounds), 3)
+    rep, clr = (int(v) for v in stats.sum(0))
+    b_ms, by = bound(4 * stops + B * N + 8 * B, PARSE_OPS * stops)
+    print(f"K2 {name} B={B} N={N}: equal to plain; {stops} stops; kernel "
+          f"{ms:.4f} ms per call; plain {plain_ms:.4f} ms; bound {b_ms:.4f} "
+          f"ms ({by}); segments repaired {rep}, cleared {clr}", flush=True)
+    return dict(name=name, step=step, bounds=bounds, reps=reps,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, stops=stops, repaired=rep, cleared=clr)
+
+
+def _k2_adversarial(B: int, N: int, dev) -> dict:
+    """Step arrays that defeat speculation or test the step arithmetic."""
+    from zlibng_tpu_torch.ops import parse
+    r = _rand64(SEED, 6, 3 * B * N).reshape(3, B, N)
+    lit_match = np.where(r[0] % np.uint64(10) < np.uint64(3),
+                         3 + (r[1] % np.uint64(256)).astype(np.int64), 1)
+    rare = r[2] % np.uint64(1000) == np.uint64(0)
+    neg = -1 - (r[2] >> np.uint64(33)).astype(np.int64)   # down to -2**31
+    arrays = {
+        "all-3": np.full((B, N), 3),
+        "all-258": np.full((B, N), 258),
+        "zeros": np.zeros((B, N)),
+        "negative": np.where(r[2] % np.uint64(2) == np.uint64(0), neg,
+                             lit_match),
+        "1<<26 sprinkled": np.where(rare, 1 << 26, lit_match),
+        "all 1<<26": np.full((B, N), 1 << 26),
+        "2**31-1 sprinkled": np.where(rare, 2 ** 31 - 1, lit_match),
+    }
+    out = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+           for k, v in arrays.items()}
+    out["all-literal fused"] = parse.fused_steps(
+        torch.ones((B, N), dtype=torch.int32, device=dev))
+    return out
+
+
+def check_k2(lanes: torch.Tensor, rows: list) -> list:
+    """K2 against its plain version on the main path's fused and raw steps
+    at L6 and L9, on adversarial steps and on edge bounds; the whole
+    encode-path parse checked and timed. Appends the main-path rows to
+    `rows`; returns every case, and the encode parse's, for profile_k2."""
     from zlibng_tpu_torch.ops import lz77, parse
     from zlibng_tpu_torch.ops.deflate import LANE_HIST, UNIT
     from zlibng_tpu_torch.stream.deflate import LEVELS
     B, N = lanes.shape
-    lc = LEVELS[6]
     dev = lanes.device
     enc_end = torch.full((B,), N, dtype=torch.int32, device=dev)
     hv = torch.zeros(B, dtype=torch.int32, device=dev)
     hv[0] = LANE_HIST
-    core = lz77.lz77_lane(lanes, LANE_HIST, enc_end, hv, lc.chain, lc.lazy,
-                          lc.max_lazy, lc.nice, unit=UNIT, good=lc.good)
-    fused = parse.fused_steps(core["step"]).contiguous()
     bounds = torch.stack([torch.full_like(enc_end, LANE_HIST), enc_end],
                          1).contiguous()
-    ks = parse.parse_select(fused, bounds)
-    ps = parse._parse_select_plain(fused, bounds)
-    torch.cuda.synchronize()
-    err = int((ks.long() - ps.long()).abs().max())
-    if err != 0:
-        raise AssertionError(f"K2: kernel != plain (max abs err {err})")
-    stops = int(ks.sum())
-    ms = timed(lambda: parse.parse_select(fused, bounds), 20)
-    plain_ms = timed(lambda: parse._parse_select_plain(fused, bounds), 3)
-    b_ms, by = bound(4 * stops + B * N + 8 * B, PARSE_OPS * stops)
-    print(f"K2 parse_select B={B} N={N} (L6 fused steps, {stops} stops): "
-          f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({by}); {ms * 1e3 / max(1, stops / B):.3f} "
-          f"us per stop per lane", flush=True)
-    rows.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     bound_ms=b_ms, bound_by=by, stops=stops))
+    raw = {}
+    for lv in (6, 9):
+        lc = LEVELS[lv]
+        core = lz77.lz77_lane(lanes, LANE_HIST, enc_end, hv, lc.chain,
+                              lc.lazy, lc.max_lazy, lc.nice, unit=UNIT,
+                              good=lc.good)
+        raw[lv] = core["step"].contiguous()
+    fused = {lv: parse.fused_steps(raw[lv]).contiguous() for lv in (6, 9)}
+    cases = []
+    for lv in (6, 9):
+        row = _k2_case(f"L{lv} fused steps", fused[lv], bounds)
+        rows.append(dict(row, level=lv))
+        cases.append(row)
+    for lv in (6, 9):
+        cases.append(_k2_case(f"L{lv} raw steps", raw[lv], bounds))
+    for name, step in _k2_adversarial(B, N, dev).items():
+        cases.append(_k2_case(name, step, bounds, reps=5))
+    S = parse.SEG
+    edge = torch.tensor([[LANE_HIST, N], [0, N], [5000, 5000], [0, 0],
+                         [S + 953, 2 * S - 49], [100, N - 777], [N - 1, N],
+                         [12345, 200001]], dtype=torch.int32, device=dev)
+    print(f"K2 edge bounds: {edge.tolist()}", flush=True)
+    for name, step in (("L6 fused", fused[6]), ("L6 raw", raw[6]),
+                       ("all-3", torch.full_like(raw[6], 3))):
+        cases.append(_k2_case(f"{name}, edge bounds", step, edge, reps=5))
+    for lv in (6, 9):
+        enc = parse.parse_select_encode(raw[lv], bounds)
+        if not torch.equal(enc, parse._parse_select_plain(raw[lv], bounds)):
+            raise AssertionError(f"L{lv}: parse_select_encode != plain walk")
+        ms = timed(lambda: parse.parse_select_encode(raw[lv], bounds), 20)
+        print(f"parse_select_encode L{lv} (fused steps, K2, cover) B={B} "
+              f"N={N}: equal to the plain walk; {ms:.4f} ms per call",
+              flush=True)
+        cases.append(dict(name=f"parse_select_encode L{lv}", step=raw[lv],
+                          bounds=bounds, reps=20, encode=True))
+    return cases
+
+
+def profile_k2(cases: list, rows: list) -> None:
+    """Device time per call of K2's two launches (and, for the encode
+    parse, of all its kernels) under torch.profiler, for every case of
+    check_k2. Runs after the main path. Sets `device_ms` in the main-path
+    rows: the sum of K2's phases, or None where the profiler saw nothing."""
+    from zlibng_tpu_torch.ops import parse
+    for c in cases:
+        step, bounds = c["step"], c["bounds"]
+        if c.get("encode"):
+            dev = device_ms(lambda: parse.parse_select_encode(step, bounds),
+                            c["reps"], "")
+            if dev is None:
+                print(f"{c['name']}: device time not measured", flush=True)
+                continue
+            k2 = sum(v for k, v in dev.items() if k.startswith("parse_"))
+            print(f"{c['name']}: device {sum(dev.values()):.4f} ms per call "
+                  f"in {len(dev)} kernels, K2 {k2:.4f} ms of it", flush=True)
+            continue
+        dev = device_ms(lambda: parse._parse_select_cuda(step, bounds),
+                        c["reps"], "parse_")
+        if dev is None:
+            print(f"K2 {c['name']}: device time not measured", flush=True)
+        else:
+            print(f"K2 {c['name']}: device {sum(dev.values()):.4f} ms per "
+                  f"call (" + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        dev.items()) + ")", flush=True)
+        for row in rows:
+            if row["name"] == c["name"]:
+                row["device_ms"] = sum(dev.values()) if dev else None
 
 
 def check_estimate(lanes: torch.Tensor) -> None:
@@ -319,15 +451,19 @@ def main() -> int:
           f"{hashlib.sha256(data).hexdigest()[:16]}: " + "; ".join(
               f"{k} {n} B" for k, n in parts), flush=True)
 
+    # the timed main path first, so that no earlier phase (allocations,
+    # profiler sessions) can skew its end-to-end numbers
+    runs = {lv: main_path(data, lv) for lv in (6, 9)}
+
     dev = torch.device("cuda")
     lanes = first_group_lanes(data, dev)
     k1, k2 = [], []
     check_k1(lanes, k1)
-    check_k2(lanes, k2)
+    k2_cases = check_k2(lanes, k2)
     check_estimate(lanes)
     del lanes
-
-    runs = {lv: main_path(data, lv) for lv in (6, 9)}
+    profile_k2(k2_cases, k2)
+    del k2_cases
     profile_group(data)
 
     src = "zlibng_tpu_torch/csrc/"
@@ -341,14 +477,17 @@ def main() -> int:
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
-    kernels.append(dict(
-        name="K2 parse_select (fused steps, L6)", route="cuda",
-        source=src + "parse.cu",
-        replaces="zlibng_tpu/ops/parse_pallas.py:26",
-        launches=runs[6]["launches"]["K2"], max_abs_err=k2[0]["max_abs_err"],
-        ms=k2[0]["ms"], plain_ms=k2[0]["plain_ms"],
-        bound_ms=k2[0]["bound_ms"], bound_by=k2[0]["bound_by"],
-        library_ms=None))
+    for row in k2:
+        lv = row["level"]
+        kernels.append(dict(
+            name=f"K2 parse_select (fused steps, L{lv})", route="cuda",
+            source=src + "parse.cu",
+            replaces="zlibng_tpu/ops/parse_pallas.py:26",
+            launches=runs[lv]["launches"]["K2"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row.get("device_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -108,17 +108,48 @@ def test_probe_kernel_matches_plain_on_card(card, W):
             assert torch.equal(ks, ps) and torch.equal(kc, pc)
 
 
-@pytest.mark.gpu
-def test_parse_kernel_matches_plain_on_card(card):
+def _parse_card_steps(n: int) -> dict:
+    """Random literal/match steps and the arrays that defeat the segmented
+    walk's speculation or test its step arithmetic, as (8, n) int32."""
     rng = np.random.default_rng(0)
-    is_m = rng.random((5, 5000)) < 0.3
-    step = torch.from_numpy(np.where(is_m, rng.integers(3, 259, (5, 5000)),
-                                     1).astype(np.int32)).to(card)
-    bounds = torch.tensor([[0, 5000], [10, 4000], [4999, 5000], [7, 7],
-                           [100, 5000]], dtype=torch.int32, device=card)
-    for s in (step, parse.fused_steps(step)):
-        assert torch.equal(parse.parse_select(s, bounds),
-                           parse._parse_select_plain(s, bounds))
+    shape = (8, n)
+    lit_match = np.where(rng.random(shape) < 0.3,
+                         rng.integers(3, 259, shape), 1)
+    rare = rng.random(shape) < 0.002
+    neg = rng.integers(-2 ** 31, 0, shape, dtype=np.int64)
+    return {
+        "random": lit_match,
+        "all-3": np.full(shape, 3),
+        "all-258": np.full(shape, 258),
+        "all-literal fused": (n - np.arange(n))[None].repeat(8, 0),
+        "zeros": np.zeros(shape),
+        "negative": np.where(rng.random(shape) < 0.5, neg, lit_match),
+        "1<<26": np.where(rare, 1 << 26, lit_match),
+        "2**31-1": np.where(rare, 2 ** 31 - 1, lit_match),
+        "all 2**31-1": np.full(shape, 2 ** 31 - 1),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5000, 20000])
+def test_parse_kernel_matches_plain_on_card(card, n):
+    S = parse.SEG
+    bounds = torch.tensor([[0, n], [10, n - 1000], [n - 1, n], [7, 7],
+                           [100, n], [S + 953, 2 * S - 49], [0, 0],
+                           [S - 1, S + 1]], dtype=torch.int32, device=card)
+    steps = {k: torch.from_numpy(a.astype(np.int32)).to(card)
+             for k, a in _parse_card_steps(n).items()}
+    for kind, step in steps.items():
+        for s in (step, parse.fused_steps(step)):
+            # leave a freed block of sel's size full of 0xAB for it to reuse
+            torch.full((8, n), 0xAB, dtype=torch.uint8, device=card)
+            n0 = parse.launches
+            got = parse.parse_select(s, bounds)
+            assert parse.launches == n0 + 1
+            assert got.dtype == torch.bool
+            assert int(got.view(torch.uint8).max()) <= 1, kind
+            assert torch.equal(got, parse._parse_select_plain(s, bounds)), \
+                kind
 
 
 @pytest.mark.gpu

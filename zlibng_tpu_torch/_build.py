@@ -28,7 +28,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probe": ("zng_probe_best", [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
-    "parse": ("zng_parse_select", [_P, _P, _P, _I, _I, _P]),
+    "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

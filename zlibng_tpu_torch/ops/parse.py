@@ -4,7 +4,10 @@ Counterpart of `zlibng_tpu/ops/parse_pallas.py`. `parse_select` walks
 pos += max(step[pos], 1) from bounds[b, 0] to bounds[b, 1], marking each
 stop: on a CUDA tensor in the hand-written kernel `csrc/parse.cu`, on a CPU
 tensor in `_parse_select_plain`, the pointer-doubling form of
-`zlibng_tpu/ops/lz77_jax.py:_reachable_jax`, batched over lanes.
+`zlibng_tpu/ops/lz77_jax.py:_reachable_jax`, batched over lanes. The
+kernel speculates per segment of SEG positions and stitches per lane (see
+the note in `csrc/parse.cu`); `tests/test_torch_parse_segmented.py` holds
+a model of its two phases against the plain version.
 """
 from __future__ import annotations
 
@@ -16,6 +19,11 @@ from .. import _build
 
 # kernel launches so far (a run resets it to show which path it took)
 launches = 0
+# csrc/parse.cu's kSeg and kLead: positions per phase-1 segment, and the
+# lead-in its speculative walk starts before each segment (>= 2 x 258, the
+# longest match)
+SEG = 2048
+LEAD = 512
 
 
 def _reachable_plain(nxt: torch.Tensor, start: torch.Tensor,
@@ -58,6 +66,8 @@ def _parse_select_plain(step: torch.Tensor, bounds: torch.Tensor):
 
 
 def _parse_select_cuda(step: torch.Tensor, bounds: torch.Tensor):
+    """Runs K2 on CUDA tensors: returns the (B, N) bool mask and the (B, 2)
+    int32 count of segments each lane's stitch repaired and cleared."""
     global launches
     B, N = step.shape
     for t in (step, bounds):
@@ -66,15 +76,22 @@ def _parse_select_cuda(step: torch.Tensor, bounds: torch.Tensor):
                 "parse kernel takes contiguous int32 CUDA tensors")
     if bounds.shape != (B, 2):
         raise ValueError("parse kernel: bounds must be (B, 2)")
+    if B > 65535:
+        raise ValueError("parse kernel: needs B <= 65535")
+    dev = step.device
+    sel = torch.empty((B, N), dtype=torch.bool, device=dev)
+    stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    if B == 0 or N == 0:
+        return sel, stats.zero_()
     fn = _build.kernel("parse")
-    sel = torch.zeros((B, N), dtype=torch.uint8, device=step.device)
-    with torch.cuda.device(step.device):
+    guess = torch.empty((B, -(-N // SEG), 2), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(step.data_ptr(), bounds.data_ptr(), sel.data_ptr(), B, N,
-                 stream)
+        err = fn(step.data_ptr(), bounds.data_ptr(), sel.data_ptr(),
+                 guess.data_ptr(), stats.data_ptr(), B, N, stream)
     _build.check(err, "parse kernel")
     launches += 1
-    return sel.bool()
+    return sel, stats
 
 
 def parse_select(step: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
@@ -82,7 +99,7 @@ def parse_select(step: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     0 <= start. Returns the (B, N) bool mask of the walk's stops: the K2
     kernel for CUDA tensors, the plain version for CPU tensors."""
     if step.is_cuda:
-        return _parse_select_cuda(step, bounds)
+        return _parse_select_cuda(step, bounds)[0]
     if step.device.type != "cpu":
         raise ValueError(f"parse_select: unsupported device {step.device}")
     return _parse_select_plain(step, bounds)
