@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from zlibng_tpu_torch/csrc with nvcc, then drives
-the main path first, compress_cuda at levels 6 and 9 on a seeded corpus of
-at least 8 MiB, and checks that zlib decodes it, that it equals the port's
-CPU output (on a 1 MiB prefix and on the whole corpus) and that the run
-went through both kernels. Then it holds each kernel (K1 probe sweep, K2
-parse walk) against its plain PyTorch version at the main path's shapes
-(K2 also on raw steps, on step arrays that defeat its speculation or test
-its step arithmetic, and on edge bounds), and last runs torch.profiler:
-K2's device time by phase and one lane group of the main path. Prints
-per-kernel timings, a `kernels` JSON line, the
-card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Exits non-zero, without that line, when
-any phase fails or no CUDA device is present. Imports nothing of JAX.
+the main path first: compress_cuda at levels 6 and 9, then the fixed-tree
+quick path (L1, and Z_FIXED at L6), on a seeded corpus of at least 8 MiB.
+Each stream must decode with zlib, equal the port's CPU output (on a 1 MiB
+prefix and on the whole corpus) and the JAX reference's pinned digest
+(`STREAMS`), and the run must go through both kernels. Then a tuned chain
+of 128 (the deep probes) on one 2 MiB lane group, held to the reference's
+digest too (`DEEP_STREAM`), and the host encoder's
+inputs (level 0, tiny inputs), which must launch no kernel. Then it holds
+each kernel (K1 probe sweep, K2 parse walk) against its plain PyTorch
+version at the main path's shapes (K2 also on raw steps, on step arrays
+that defeat its speculation or test its step arithmetic, and on edge
+bounds), and last runs torch.profiler: K2's device time by phase, the
+deep probes' launches, and one lane group at L6, L1 and Z_FIXED (with
+stage 1's share of its launches, counted in the same session). Prints
+per-phase seconds, per-kernel timings, a `kernels` JSON line, the card's
+name and power limit, and as its last line {"ok": true, "device": {...}}.
+Exits non-zero, without that line, when any phase fails or no CUDA device
+is present. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -45,6 +51,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 PROBE_OPS = 32
 # operations of one K2 stop: store, load, max, add, compare
 PARSE_OPS = 5
+# compress_tpu's streams of the corpus, (bytes, sha256[:16]) by (level,
+# strategy), from the JAX reference on the CPU; the slow test of
+# tests/test_torch_chip_corpus.py recomputes them
+STREAMS = {(6, 0): (3703261, "b2e5193bf13fdc9f"),
+           (9, 0): (3680619, "edbde05b1a5bf4d1"),
+           (1, 0): (4689779, "e34f059d648156fb"),
+           (6, 4): (4519653, "1be0edb528b1f41a")}
+# the deep-probe phase's tune: chain 128 = K1's 64 dense probes + 64 deep
+DEEP_TUNE = dict(chain=128, lazy=True, max_lazy=258, nice=258, good=12)
+# compress_tpu's stream of the corpus's first 2 MiB at L6 with DEEP_TUNE
+# (bytes, sha256[:16]), recomputed by the same slow test
+DEEP_STREAM = (642885, "f9643b06c189beb8")
 
 
 def _rand64(seed: int, stream: int, n: int) -> np.ndarray:
@@ -134,16 +152,20 @@ def first_group_lanes(data: bytes, dev) -> torch.Tensor:
     return torch.from_numpy(lanes).to(dev)
 
 
-def check_k1(lanes: torch.Tensor, rows: list) -> None:
+def check_k1(lanes: torch.Tensor, rows: list) -> tuple:
+    """K1 against its plain version at L6's, L9's and L1's operating
+    points (dense 16, 64 and 2); returns its inputs for the deep probes."""
     from zlibng_tpu_torch.ops import lz77, probe
+    from zlibng_tpu_torch.stream.deflate import LEVELS
     B, N = lanes.shape
     pad = torch.cat([lanes, lanes.new_zeros((B, 16))], 1)
     w2_s, h_s, pos_s, _ = lz77.sorted_probe_rows(lz77._build_w4(pad), N)
     hv = torch.zeros(B, dtype=torch.int32, device=lanes.device)
     hv[0] = 32768
     W = w2_s.shape[2]
-    for dense in (16, 64):
-        args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH, 12, 32768)
+    for lv in (6, 9, 1):
+        dense, good = LEVELS[lv].chain, max(4, min(LEVELS[lv].good, 16))
+        args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH, good, 32768)
         ks, kc = probe.probe_best(*args)
         ps, pc = probe._probe_best_plain(*args)
         torch.cuda.synchronize()
@@ -156,11 +178,40 @@ def check_k1(lanes: torch.Tensor, rows: list) -> None:
         plain_ms = timed(lambda: probe._probe_best_plain(*args), 3)
         b_ms, by = bound(B * N * ((W + 2) * 4 + 8) + 4 * B,
                          B * N * dense * PROBE_OPS)
-        print(f"K1 probe_best B={B} N={N} W={W} dense={dense}: equal to "
-              f"plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({by})", flush=True)
-        rows.append(dict(dense=dense, max_abs_err=err, ms=ms,
+        print(f"K1 probe_best B={B} N={N} W={W} dense={dense} (L{lv}): "
+              f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({by})", flush=True)
+        rows.append(dict(level=lv, dense=dense, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=by))
+    return w2_s, h_s, pos_s, hv
+
+
+def time_deep_probes(k1_inputs: tuple) -> dict:
+    """The deep probes of the deep-probe phase's tune on the first lane
+    group, after K1's 64 dense probes: needy rows, chunks and ms per call
+    between CUDA events (plain PyTorch: no kernel of their own yet)."""
+    from zlibng_tpu_torch.ops import lz77, probe
+    from zlibng_tpu_torch.ops.deflate import LANE_HIST
+    w2_s, h_s, pos_s, hv = k1_inputs
+    B, N = h_s.shape
+    good = DEEP_TUNE["good"]
+    score, cand = probe.probe_best(w2_s, h_s, pos_s, hv, lz77.DENSE_PROBES,
+                                   lz77.GATE_DEPTH, good, 32768)
+    enc_end = torch.full((B, 1), N, dtype=torch.int32, device=h_s.device)
+    args = (w2_s, h_s, pos_s, hv)
+    tail = (LANE_HIST, enc_end, lz77.DENSE_PROBES, DEEP_TUNE["chain"],
+            good, 32768)
+    lz77.deep_stats.update(rows=0, chunks=0)
+    lz77.deep_probes(*args, score.clone(), cand.clone(), *tail)
+    stats = dict(lz77.deep_stats)
+    ms = timed(lambda: lz77.deep_probes(*args, score.clone(), cand.clone(),
+                                        *tail), 5)
+    print(f"deep probes (chain {DEEP_TUNE['chain']}) on the first group "
+          f"B={B} N={N}: {stats['rows']} needy rows x {stats['k_steps']} "
+          f"probes in {stats['chunks']} chunks; {ms:.4f} ms per call",
+          flush=True)
+    return dict(stats, ms=ms, run=lambda: lz77.deep_probes(
+        *args, score.clone(), cand.clone(), *tail))
 
 
 def device_ms(fn, reps: int, match: str) -> dict | None:
@@ -242,8 +293,9 @@ def _k2_adversarial(B: int, N: int, dev) -> dict:
 
 
 def check_k2(lanes: torch.Tensor, rows: list) -> list:
-    """K2 against its plain version on the main path's fused and raw steps
-    at L6 and L9, on adversarial steps and on edge bounds; the whole
+    """K2 against its plain version on the main path's fused steps at L6,
+    L9 and L1 (un-lazy, nice 16) and raw steps at L6 and L9, on
+    adversarial steps and on edge bounds; the whole
     encode-path parse checked and timed. Appends the main-path rows to
     `rows`; returns every case, and the encode parse's, for profile_k2."""
     from zlibng_tpu_torch.ops import lz77, parse
@@ -257,15 +309,16 @@ def check_k2(lanes: torch.Tensor, rows: list) -> list:
     bounds = torch.stack([torch.full_like(enc_end, LANE_HIST), enc_end],
                          1).contiguous()
     raw = {}
-    for lv in (6, 9):
+    for lv in (6, 9, 1):
         lc = LEVELS[lv]
         core = lz77.lz77_lane(lanes, LANE_HIST, enc_end, hv, lc.chain,
                               lc.lazy, lc.max_lazy, lc.nice, unit=UNIT,
                               good=lc.good)
         raw[lv] = core["step"].contiguous()
-    fused = {lv: parse.fused_steps(raw[lv]).contiguous() for lv in (6, 9)}
+    fused = {lv: parse.fused_steps(step).contiguous()
+             for lv, step in raw.items()}
     cases = []
-    for lv in (6, 9):
+    for lv in (6, 9, 1):
         row = _k2_case(f"L{lv} fused steps", fused[lv], bounds)
         rows.append(dict(row, level=lv))
         cases.append(row)
@@ -349,79 +402,221 @@ def check_estimate(lanes: torch.Tensor) -> None:
           f"bits between the card and the host", flush=True)
 
 
-def main_path(data: bytes, level: int) -> dict:
+def _name(level: int, strategy: int) -> str:
+    return f"L{level}" + (" Z_FIXED" if strategy == 4 else "")
+
+
+def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
+    """compress_cuda on the whole corpus: cold and warm runs with the
+    launch counters read around the cold one, zlib round trip, equality
+    with the CPU port (1 MiB prefix, whole corpus) and with the
+    reference's pinned digest."""
     from zlibng_tpu_torch import compress_cuda
     from zlibng_tpu_torch.ops import deflate, parse, probe
+    name = _name(level, strategy)
+    kw = dict(strategy=strategy)
     probe.launches = 0
     parse.launches = 0
     t0 = time.perf_counter()
-    out = compress_cuda(data, level)
+    out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = {"K1": probe.launches, "K2": parse.launches}
     if launches["K1"] == 0 or launches["K2"] == 0:
-        raise AssertionError(f"L{level}: main path missed a kernel {launches}")
+        raise AssertionError(f"{name}: main path missed a kernel {launches}")
     if zlib.decompress(out) != data:
-        raise AssertionError(f"L{level}: zlib round trip failed")
+        raise AssertionError(f"{name}: zlib round trip failed")
+    digest = (len(out), hashlib.sha256(out).hexdigest()[:16])
+    if digest != STREAMS[level, strategy]:
+        raise AssertionError(f"{name}: stream {digest} differs from "
+                             f"compress_tpu's {STREAMS[level, strategy]}")
     t0 = time.perf_counter()
-    warm_out = compress_cuda(data, level)
+    warm_out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     stages = dict(deflate.stage_seconds)
     if warm_out != out:
-        raise AssertionError(f"L{level}: warm run differs from cold run")
+        raise AssertionError(f"{name}: warm run differs from cold run")
     prefix = data[: 1 << 20]
-    if compress_cuda(prefix, level) != compress_cuda(prefix, level,
-                                                     device="cpu"):
-        raise AssertionError(f"L{level}: 1 MiB prefix differs from CPU port")
+    if compress_cuda(prefix, level, **kw) != compress_cuda(
+            prefix, level, device="cpu", **kw):
+        raise AssertionError(f"{name}: 1 MiB prefix differs from CPU port")
     t0 = time.perf_counter()
-    if compress_cuda(data, level, device="cpu") != out:
-        raise AssertionError(f"L{level}: output differs from the CPU port")
+    if compress_cuda(data, level, device="cpu", **kw) != out:
+        raise AssertionError(f"{name}: output differs from the CPU port")
     cpu_s = time.perf_counter() - t0
     mbs = len(data) / warm / 1e6
-    print(f"main path L{level}: {len(data)} B -> {len(out)} B "
-          f"(ratio {len(out) / len(data):.4f}, sha256 "
-          f"{hashlib.sha256(out).hexdigest()[:16]}); zlib round trip ok; "
-          f"equal to the CPU port on the 1 MiB prefix and on the whole corpus "
-          f"({cpu_s:.1f} s on the host); "
-          f"launches {launches}; cold {cold:.3f} s, warm {warm:.3f} s = "
-          f"{mbs:.3f} MB/s; warm stages: stage1 {stages['stage1']:.3f} s, "
+    print(f"main path {name}: {len(data)} B -> {len(out)} B "
+          f"(ratio {len(out) / len(data):.4f}, sha256 {digest[1]}, equal to "
+          f"compress_tpu's); zlib round trip ok; equal to the CPU port on "
+          f"the 1 MiB prefix and on the whole corpus ({cpu_s:.1f} s on the "
+          f"host); launches {launches}; cold {cold:.3f} s, warm {warm:.3f} s "
+          f"= {mbs:.3f} MB/s; warm stages: stage1 {stages['stage1']:.3f} s, "
           f"stage2 {stages['stage2']:.3f} s, stitch {stages['stitch']:.3f} s",
           flush=True)
     return dict(level=level, launches=launches, size=len(out),
                 warm_s=warm, mb_s=mbs, stages=stages)
 
 
-def profile_group(data: bytes, level: int = 6) -> None:
-    """One lane group (2 MiB) of the main path under torch.profiler: CUDA
-    kernel launches, summed kernel time and the device's idle share of
-    the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def deep_path(data: bytes) -> dict:
+    """compress_cuda with a chain-128 tune on the corpus's first 2 MiB
+    (one full-width lane group), against the reference's pinned digest
+    and the CPU port."""
+    from types import SimpleNamespace
     from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import lz77, parse, probe
     group = data[: 2 << 20]
-    compress_cuda(group, level)                       # warm
+    tune = SimpleNamespace(**DEEP_TUNE)
+    probe.launches = parse.launches = 0
+    lz77.deep_stats.update(rows=0, chunks=0)
+    t0 = time.perf_counter()
+    out = compress_cuda(group, 6, tune=tune)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"K1": probe.launches, "K2": parse.launches}
+    stats = dict(lz77.deep_stats)
+    if launches["K1"] == 0 or launches["K2"] == 0 or stats["rows"] == 0:
+        raise AssertionError(f"deep probes: missed a kernel or the deep "
+                             f"probes {launches} {stats}")
+    if zlib.decompress(out) != group:
+        raise AssertionError("deep probes: zlib round trip failed")
+    digest = (len(out), hashlib.sha256(out).hexdigest()[:16])
+    if digest != DEEP_STREAM:
+        raise AssertionError(f"deep probes: stream {digest} differs from "
+                             f"compress_tpu's {DEEP_STREAM}")
+    if compress_cuda(group, 6, tune=tune, device="cpu") != out:
+        raise AssertionError("deep probes: output differs from the CPU port")
+    print(f"deep probes, tune {DEEP_TUNE}, first {len(group)} B: -> "
+          f"{len(out)} B (sha256 {digest[1]}, equal to compress_tpu's and "
+          f"to the CPU port), zlib round trip ok; "
+          f"{stats['rows']} needy rows x {stats['k_steps']} probes in "
+          f"{stats['chunks']} chunks; {sec:.3f} s (first call of this "
+          f"tune); launches {launches}", flush=True)
+    return launches
+
+
+def host_route(data: bytes) -> None:
+    """Level 0 on the whole corpus and 0, 1 and 1023 bytes at L6 through
+    compress_cuda(device="cuda"): the host encoder, no kernel launched."""
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import parse, probe
+    probe.launches = parse.launches = 0
+    for what, buf, level in (("level 0, whole corpus", data, 0),
+                             ("0 B at L6", b"", 6),
+                             ("1 B at L6", data[:1], 6),
+                             ("1023 B at L6", data[:1023], 6)):
+        t0 = time.perf_counter()
+        out = compress_cuda(buf, level, device="cuda")
+        sec = time.perf_counter() - t0
+        if zlib.decompress(out) != buf:
+            raise AssertionError(f"host route {what}: zlib round trip failed")
+        if compress_cuda(buf, level, device="cpu") != out:
+            raise AssertionError(f"host route {what}: differs from CPU port")
+        print(f"host route {what}: {len(buf)} B -> {len(out)} B in "
+              f"{sec:.3f} s; zlib round trip ok; equal to the CPU port",
+              flush=True)
+    if probe.launches or parse.launches:
+        raise AssertionError(f"host route launched kernels: K1 "
+                             f"{probe.launches}, K2 {parse.launches}")
+    print("host route: no kernel launched (K1 0, K2 0)", flush=True)
+
+
+def _kernels(fn) -> tuple[list, list, float]:
+    """Device events and host events of one warm call of fn under
+    torch.profiler, and the call's wall seconds (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                              # warm
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as p:
         t0 = time.perf_counter()
-        compress_cuda(group, level)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in p.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in kern) / 1e6     # us -> s
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = p.events()
+    return ([e for e in evs if e.device_type == cuda],
+            [e for e in evs if e.device_type != cuda], wall)
+
+
+def _is_launch(e) -> bool:
+    """A host-side CUDA runtime call that puts one device event on the
+    stream: a kernel launch, a copy or a fill."""
+    return e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                              "cudaMemcpy", "cudaMemset"))
+
+
+def profile_group(data: bytes, level: int = 6, strategy: int = 0) -> None:
+    """One lane group (2 MiB) of the main path under torch.profiler, twice:
+    device events (kernels, copies, fills), summed device time and the
+    device's idle share of the call's wall time. Stage 1 runs inside a
+    `record_function` range, and its share is the host's launch calls
+    that fall inside that range, counted in the same session."""
+    from torch.profiler import record_function
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import deflate
+    group = data[: 2 << 20]
+    stage1 = deflate._stage1
+    label = "chip_smoke stage1"
+
+    def ranged(*a, **k):
+        with record_function(label):
+            return stage1(*a, **k)
+
+    deflate._stage1 = ranged
+    try:
+        for session in (1, 2):
+            dev, host, wall = _kernels(
+                lambda: compress_cuda(group, level, strategy=strategy))
+            # the range also shows on the device's timeline: not work
+            dev = [e for e in dev if e.name != label]
+            if not dev:
+                print("profile: the profiler saw no device events (not "
+                      "measured)", flush=True)
+                return
+            spans = [e.time_range for e in host if e.name == label]
+            launches = [e for e in host if _is_launch(e)]
+            in_s1 = sum(any(r.start <= e.time_range.start < r.end
+                            for r in spans) for e in launches)
+            mem = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+            busy = sum(e.device_time for e in dev) / 1e6     # us -> s
+            by_name: dict[str, float] = {}
+            for e in dev:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+            top = sorted(((t, n) for n, t in by_name.items()),
+                         reverse=True)[:5]
+            print(f"profile {_name(level, strategy)} one 2 MiB group, "
+                  f"session {session}: wall {wall:.3f} s (profiled), "
+                  f"{len(dev)} device events ({len(dev) - mem} kernels, "
+                  f"{mem} copies and fills); {len(launches)} host launch "
+                  f"calls, {in_s1} of them in stage 1's {len(spans)} "
+                  f"range(s), {len(launches) - in_s1} after; device time "
+                  f"{busy:.4f} s, device idle share {1 - busy / wall:.4f}; "
+                  f"top by device time: " + "; ".join(
+                      f"{n[:60]} {t / 1e3:.2f} ms" for t, n in top),
+                  flush=True)
+    finally:
+        deflate._stage1 = stage1
+
+
+def profile_deep(deep: dict) -> None:
+    """CUDA kernel launches and device time of one call of the deep
+    probes, from torch.profiler."""
+    kern, _, _ = _kernels(deep["run"])
     if not kern:
-        print("profile: the profiler saw no device events (not measured)")
+        print("deep probes: device time not measured", flush=True)
         return
-    by_name: dict[str, float] = {}
-    for e in kern:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
-    top = sorted(((t, n) for n, t in by_name.items()), reverse=True)[:5]
-    print(f"profile L{level} one 2 MiB group: wall {wall:.3f} s (profiled), "
-          f"{len(kern)} CUDA kernels, kernel time {busy:.4f} s, device idle "
-          f"share {1 - busy / wall:.4f}; top kernels by total device time: "
-          + "; ".join(f"{n[:60]} {t / 1e3:.2f} ms" for t, n in top),
-          flush=True)
+    print(f"deep probes: {len(kern)} CUDA kernels per call ({deep['chunks']}"
+          f" chunks), device {sum(e.device_time for e in kern) / 1e3:.4f} "
+          f"ms per call", flush=True)
+
+
+def phase(name: str, fn, *args):
+    """Run one phase of the smoke and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -429,6 +624,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
+    t_all = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     from zlibng_tpu_torch import _build
 
@@ -451,29 +647,41 @@ def main() -> int:
           f"{hashlib.sha256(data).hexdigest()[:16]}: " + "; ".join(
               f"{k} {n} B" for k, n in parts), flush=True)
 
-    # the timed main path first, so that no earlier phase (allocations,
-    # profiler sessions) can skew its end-to-end numbers
-    runs = {lv: main_path(data, lv) for lv in (6, 9)}
+    # the timed main paths first, so that no earlier phase (allocations,
+    # profiler sessions) can skew their end-to-end numbers
+    runs = {}
+    for lv, st in ((6, 0), (9, 0), (1, 0), (6, 4)):
+        runs[lv, st] = phase(f"main path {_name(lv, st)}", main_path, data,
+                             lv, st)
+    phase("deep probes", deep_path, data)
+    phase("host route", host_route, data)
 
     dev = torch.device("cuda")
     lanes = first_group_lanes(data, dev)
     k1, k2 = [], []
-    check_k1(lanes, k1)
-    k2_cases = check_k2(lanes, k2)
+    k1_inputs = phase("K1 check", check_k1, lanes, k1)
+    k2_cases = phase("K2 check", check_k2, lanes, k2)
+    deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
     check_estimate(lanes)
-    del lanes
+    del lanes, k1_inputs
+    t0 = time.perf_counter()
     profile_k2(k2_cases, k2)
     del k2_cases
-    profile_group(data)
+    profile_deep(deep)
+    del deep
+    for lv, st in ((6, 0), (1, 0), (6, 4)):
+        profile_group(data, lv, st)
+    print(f"phase profile: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "zlibng_tpu_torch/csrc/"
     kernels = []
-    for row, lv in zip(k1, (6, 9)):
+    for row in k1:
+        lv = row["level"]
         kernels.append(dict(
             name=f"K1 probe_best (dense={row['dense']}, L{lv})", route="cuda",
             source=src + "probe.cu",
             replaces="zlibng_tpu/ops/probe_pallas.py:51",
-            launches=runs[lv]["launches"]["K1"],
+            launches=runs[lv, 0]["launches"]["K1"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
@@ -483,12 +691,14 @@ def main() -> int:
             name=f"K2 parse_select (fused steps, L{lv})", route="cuda",
             source=src + "parse.cu",
             replaces="zlibng_tpu/ops/parse_pallas.py:26",
-            launches=runs[lv]["launches"]["K2"],
+            launches=runs[lv, 0]["launches"]["K2"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
             device_ms=row.get("device_ms")))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke total: {time.perf_counter() - t_all:.1f} s",
+          flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -1,13 +1,12 @@
-"""The PyTorch port's routing: the slice's limits raise NotImplementedError,
-a CUDA request never carries on on the CPU, wrappers route by tensor
-device, and the kernel build raises when it cannot run. Tests marked `gpu`
-hold the CUDA kernels against their plain versions and the card's output
+"""The PyTorch port's routing: a CUDA request never carries on on the CPU
+(not even for the host encoder's inputs), wrappers route by tensor device,
+and the kernel build raises when it cannot run. Tests marked `gpu` hold
+the CUDA kernels against their plain versions and the card's output
 against the CPU's; without a card they skip. This file imports nothing of
 JAX, so on a machine with a card and no JAX it runs as
 `python -m pytest --noconftest -m gpu tests/test_torch_cuda_path.py`."""
 import inspect
 import zlib
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,21 +27,10 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(level=1), "quick path"),
-    (dict(level=6, strategy=4), "quick path"),
-    (dict(level=0), "host encoder"),
-    (dict(level=6, tune=SimpleNamespace(chain=128, lazy=True, max_lazy=64,
-                                        nice=258, good=12)), "deep probes"),
-])
-def test_outside_the_slice_raises(kwargs, what):
-    with pytest.raises(NotImplementedError, match=what):
-        compress_cuda(sample("text", 5000), device="cpu", **kwargs)
-
-
 def test_small_input_and_bad_wbits_raise():
-    with pytest.raises(NotImplementedError, match="host encoder"):
-        compress_cuda(b"x" * 1023, 6, device="cpu")
+    """Small inputs run (on the host encoder); bad wbits raise."""
+    assert zlib.decompress(compress_cuda(b"x" * 1023, 6, device="cpu")) \
+        == b"x" * 1023
     with pytest.raises(StreamError):
         compress_cuda(b"x" * 4096, 6, wbits=32, device="cpu")
 
@@ -54,6 +42,11 @@ def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
     before = (probe.launches, parse.launches)
     with pytest.raises(RuntimeError, match="cuda"):
         zlibng_tpu_torch.compress_cuda(sample("text", 5000), 6)
+    # the host encoder's inputs too: the device is checked first
+    with pytest.raises(RuntimeError, match="cuda"):
+        compress_cuda(sample("text", 5000), 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        compress_cuda(b"x")
     assert (probe.launches, parse.launches) == before
 
 
@@ -98,7 +91,7 @@ def test_probe_kernel_matches_plain_on_card(card, W):
     w2_s, h_s, pos_s, _ = lz77.sorted_probe_rows(lz77._build_w4(pad), 9000)
     w2_s = w2_s[..., :W].contiguous()
     hv = torch.tensor([100, 0], dtype=torch.int32, device=card)
-    for dense in (4, 16, 24, 64):
+    for dense in (2, 4, 16, 24, 64):
         for max_dist in (512, 32768):
             args = (w2_s, h_s, pos_s, hv, dense, 16, 12, max_dist)
             n0 = probe.launches
@@ -160,4 +153,15 @@ def test_compress_on_card_matches_cpu(card, level):
     got = compress_cuda(data, level, device=card)
     assert probe.launches > n0[0] and parse.launches > n0[1]
     assert got == compress_cuda(data, level, device="cpu")
+    assert zlib.decompress(got) == data
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("level,strategy", [(1, 0), (6, 4)])
+def test_quick_path_on_card_matches_cpu(card, level, strategy):
+    data = pigz()[:300000] + sample("a256", 20000)
+    n0 = (probe.launches, parse.launches)
+    got = compress_cuda(data, level, strategy=strategy, device=card)
+    assert probe.launches > n0[0] and parse.launches > n0[1]
+    assert got == compress_cuda(data, level, strategy=strategy, device="cpu")
     assert zlib.decompress(got) == data

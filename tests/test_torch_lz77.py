@@ -99,9 +99,3 @@ def test_word_hash_and_byte_ctz_match_reference():
         tprobe._ctz_bytes32(torch.from_numpy(words.astype(np.int64))).numpy(),
         want)
 
-
-def test_deep_chain_not_ported():
-    lanes = torch.zeros((1, 4096), dtype=torch.uint8)
-    one = torch.tensor([4096], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="deep probes"):
-        tlz.lz77_lane(lanes, 0, one, one * 0, 128, True, 32, 128)

@@ -143,7 +143,8 @@ void dispatch(const int* w2, const int* hs, const int* ps, const int* hv,
     launch<D, W>(w2, hs, ps, hv, score, cand, B, N, dense, gate_depth,      \
                  good_l16, max_dist, stream);                               \
     return;
-  switch (dense) {  // the chains of levels 2-9
+  switch (dense) {  // the chains of levels 1-9
+    ZNG_PROBE_CASE(2)
     ZNG_PROBE_CASE(4)
     ZNG_PROBE_CASE(8)
     ZNG_PROBE_CASE(16)

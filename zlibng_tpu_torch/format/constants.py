@@ -92,6 +92,52 @@ def _gen_dist_tables():
 DIST_EXTRA, DIST_BASE = _gen_dist_tables()
 
 
+def _gen_length_code_lut():
+    """length (3..258) -> length code (257..285), as a 256-entry LUT on len-3."""
+    lut = np.zeros(256, dtype=np.int32)
+    for code in range(28):
+        lo = LENGTH_BASE[code]
+        hi = lo + (1 << LENGTH_EXTRA[code])
+        lut[lo - 3: hi - 3] = 257 + code
+    lut[258 - 3] = 285
+    return lut
+
+
+LENGTH_CODE_LUT = _gen_length_code_lut()
+
+
+def _gen_dist_code_lut():
+    """Two-part LUT mapping distance -> dist code (zlib-ng trees.h d_code):
+    d <= 256 -> DIST_CODE_LUT[d - 1], d > 256 -> DIST_CODE_LUT[256 +
+    ((d - 1) >> 7)]."""
+    lut = np.zeros(512, dtype=np.int32)
+    for code in range(30):
+        lo = DIST_BASE[code]
+        hi = lo + (1 << DIST_EXTRA[code])
+        for d in range(lo, min(hi, 257)):
+            lut[d - 1] = code
+        if lo > 256 or hi > 257:
+            for d in range(max(lo, 257), hi):
+                lut[256 + ((d - 1) >> 7)] = code
+    return lut
+
+
+DIST_CODE_LUT = _gen_dist_code_lut()
+
+
+def dist_to_code(dist):
+    """Vectorized distance (1..32768) -> distance code (0..29)."""
+    dist = np.asarray(dist)
+    small = DIST_CODE_LUT[np.clip(dist - 1, 0, 255)]
+    big = DIST_CODE_LUT[256 + np.clip((dist - 1) >> 7, 0, 255)]
+    return np.where(dist <= 256, small, big)
+
+
+def length_to_code(length):
+    """Vectorized match length (3..258) -> length code (257..285)."""
+    return LENGTH_CODE_LUT[np.asarray(length) - 3]
+
+
 # ---------------------------------------------------------------------------
 # Canonical Huffman code construction (RFC 1951 §3.2.2)
 # ---------------------------------------------------------------------------

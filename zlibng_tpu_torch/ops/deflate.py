@@ -1,17 +1,23 @@
 """Block-parallel DEFLATE encoder on the card: the port's main path.
 
-Counterpart of `zlibng_tpu/ops/deflate_tpu.py` (the auto stage-2 path):
+Counterpart of `zlibng_tpu/ops/deflate_tpu.py`:
 
   host:   slice the input into payload lanes (64-256 KiB), each with the
           previous 32 KiB as read-only history; group up to 2 MiB of lanes
-  device: stage 1 — hash/sort/probe (K1)/extend/lazy rule per lane
-          [ops/lz77.py], the parse walk (K2) [ops/parse.py], per-unit
-          symbol histograms
-  device: stage 2 — block partition (entropy-estimate DP), exact Huffman
-          tables + dynamic headers [ops/huffman.py], block-type choice from
-          exact bits, token render + bit pack [ops/bitpack_merge.py]
+  device: stage 1 — hash/sort/probe (K1, then the deep probes for tuned
+          chains beyond 64)/extend/lazy rule per lane [ops/lz77.py], the
+          parse walk (K2) [ops/parse.py], per-unit symbol histograms
+  device: stage 2, auto — block partition (entropy-estimate DP), exact
+          Huffman tables + dynamic headers [ops/huffman.py], block-type
+          choice from exact bits, token render + bit pack
+          [ops/bitpack_merge.py]; or the fixed-tree quick path (L1 and
+          Z_FIXED): each unit's exact static bits from stage 1, static
+          codes in closed form, render + pack
   host:   fetch per-unit descriptors and the packed bytes; bit-level
           stitch (stored blocks from the raw input) + zlib/gzip framing
+
+Level 0 and inputs under 1024 bytes run on the host encoder
+(stream/deflate.py), as in the reference.
 
 The lane geometry (LANE_BLOCKS, UNIT, the lane-size rule, OUT_BUCKETS)
 decides the bytes and equals the reference's, so the output is
@@ -36,14 +42,15 @@ from ..format.constants import (
 )
 from ..huffman.bitpack import pack_bits
 from ..stream.deflate import (
-    LEVELS, Z_DEFAULT_STRATEGY, Z_FIXED, LevelConfig, level_config_from,
+    LEVELS, Z_DEFAULT_STRATEGY, Z_FIXED, level_config_from,
 )
+from ..stream.deflate import compress as compress_host
 from ..trace import span, trace
 from .bitpack import _or_field
 from .bitpack_merge import hierarchical_pack
 from .huffman import dyn_header, huff_table
 from .lz77 import (
-    DENSE_PROBES, dist_code_arith, dist_extra_arith, finalize_tokens,
+    dist_code_arith, dist_extra_arith, finalize_tokens,
     length_code_arith, length_extra_arith, lz77_lane, unit_freqs,
 )
 from .parse import parse_select_encode
@@ -135,11 +142,14 @@ def _lane_slices(flat: torch.Tensor, first: int, stride: int, length: int,
 
 
 def _stage1(flat, enc_ends, hist_valids, lane_block, chain, lazy, max_lazy,
-            nice=258, strategy=0, good=12, max_dist=WINDOW_SIZE):
+            nice=258, strategy=0, good=12, max_dist=WINDOW_SIZE,
+            quick=False):
     """flat: (LANE_HIST + Bup*lane_block,) uint8, the group's payload with
     its 32K history prefix; enc_ends, hist_valids: (B,) int32 on the same
     device. Returns (tokens dict (B, N), lfreqs (B, qpl, 286),
-    dfreqs (B, qpl, 30))."""
+    dfreqs (B, qpl, 30)); with `quick`, (tokens, fb (B, qpl) int32, None):
+    each unit's exact static-tree body bits, all the fixed-tree stage 2
+    needs from the host."""
     lane = LANE_HIST + lane_block
     B = enc_ends.shape[0]
     lanes = _lane_slices(flat, 0, lane_block, lane, B)
@@ -155,6 +165,14 @@ def _stage1(flat, enc_ends, hist_valids, lane_block, chain, lazy, max_lazy,
                                 outs["tok_len"] > 0, LANE_HIST, UNIT, qpl)
     toks = dict(sel=outs["sel"], tok_len=outs["tok_len"],
                 tok_dist=outs["tok_dist"])
+    if quick:
+        # product of the counts and the static code + extra lengths as an
+        # elementwise product and an int32 sum (no int32 matmul on CUDA;
+        # exact, counts <= UNIT)
+        C = _consts(flat.device)
+        fb = ((lfreqs * (C["fll"] + C["lext"])).sum(-1, dtype=I32)
+              + (dfreqs * (C["fdl"] + C["dext"])).sum(-1, dtype=I32))
+        return toks, fb, None
     return toks, lfreqs, dfreqs
 
 
@@ -401,19 +419,111 @@ def _stage2_auto(flat, tok_len, tok_dist, sel, lfreqs, dfreqs, enc_ends,
                              out_bytes, qpl)
 
 
-def _compact_units(body, hdr, offs: np.ndarray, nbytes: np.ndarray):
-    """Concatenate every unit's header and body bytes in offset order into
-    one flat buffer (U = B * qpl rows; offs/nbytes (U, 2) host arrays of
-    byte offsets and byte counts): the fetch shrinks from the bucket to
-    the compressed size. Returns (cur,) uint8 on the device."""
-    parts = []
-    for u in range(offs.shape[0]):
-        if nbytes[u, 0]:
-            parts.append(hdr[u, :nbytes[u, 0]])
-        if nbytes[u, 1]:
-            parts.append(body[u, :nbytes[u, 1]])
+def _bitrev16(v: torch.Tensor) -> torch.Tensor:
+    """Bit-reverse the low 16 bits of v (int32, 0 <= v < 2^16)."""
+    v = ((v & 0x5555) << 1) | ((v >> 1) & 0x5555)
+    v = ((v & 0x3333) << 2) | ((v >> 2) & 0x3333)
+    v = ((v & 0x0F0F) << 4) | ((v >> 4) & 0x0F0F)
+    return ((v & 0x00FF) << 8) | ((v >> 8) & 0x00FF)
+
+
+def _static_lit_code(sym: torch.Tensor):
+    """(lsb_first_code, nbits) int32 of the RFC 1951 §3.2.6 static
+    literal/length code of sym (0..287), in closed form: 0-143 -> 8 bits
+    from 0x30, 144-255 -> 9 from 0x190, 256-279 -> 7 from 0, 280-287 -> 8
+    from 0xC0."""
+    sym = sym.to(I32)
+    nb = torch.where(sym < 144, 8, torch.where(
+        sym < 256, 9, torch.where(sym < 280, 7, 8))).to(I32)
+    base = torch.where(
+        sym < 144, 0x30 + sym,
+        torch.where(sym < 256, 0x190 + sym - 144,
+                    torch.where(sym < 280, sym - 256, 0xC0 + sym - 280)))
+    return _bitrev16(base) >> (16 - nb), nb
+
+
+def _render_pack_unit_fixed(qbytes, tl, td, se, out_bytes: int,
+                            demote: bool):
+    """Static-tree render + pack of (U, UNIT) units, every code computed
+    arithmetically. `demote` turns on the cost-model match demotion
+    (Z_FIXED); the L1 quick path emits matches unconditionally, as
+    zlib-ng's deflate_quick does (deflate_quick.c:47-130)."""
+    tl = tl.to(I32)
+    td = td.to(I32)
+    U, N = tl.shape
+    pos = torch.arange(N, dtype=I32, device=tl.device)
+    is_match = (tl > 0) & se
+    lsm = length_code_arith(tl.clamp(min=3))
+    dsm = torch.where(is_match, dist_code_arith(td.clamp(min=1)), 0)
+    le_, lv_ = length_extra_arith(tl.clamp(min=3))
+    de_, dv_ = dist_extra_arith(td.clamp(min=1))
+    lit_code, lit_nb = _static_lit_code(qbytes)
+    mcode, mnb = _static_lit_code(lsm)
+    dcode_all = _bitrev16(dsm) >> 11                          # 5-bit codes
+
+    if demote:
+        # a selected match whose static bits exceed its span's literal bits
+        # (8 or 9 each: every byte has a code) becomes literals
+        match_bits = mnb + le_ + 5 + de_
+        csum = torch.cat([torch.zeros_like(lit_nb[:, :1]),
+                          torch.cumsum(lit_nb, 1, dtype=I32)], 1)
+        endq = (pos + tl).clamp(0, N).long()
+        span_bits = csum.gather(1, endq) - csum[:, :-1]
+        demote_m = is_match & (match_bits > span_bits)
+        end_max = torch.where(demote_m, pos + tl, 0).cummax(1).values
+        covered = pos < end_max
+        se = se | covered
+        is_match = is_match & ~covered
+
+    fm = is_match
+    code0 = torch.where(fm, mcode, lit_code).to(torch.int64)
+    n0 = torch.where(fm, mnb, lit_nb)
+    le = torch.where(fm, le_, 0)
+    lv = torch.where(fm, lv_, 0)
+    dcode = torch.where(fm, dcode_all, 0)
+    dn = torch.where(fm, 5, 0)
+    de = torch.where(fm, de_, 0)
+    dv = torch.where(fm, dv_, 0)
+    lo, hi = code0, torch.zeros_like(code0)
+    sh = n0
+    lo, hi = _or_field(lo, hi, lv, sh)
+    sh = sh + le
+    lo, hi = _or_field(lo, hi, dcode, sh)
+    sh = sh + dn
+    lo, hi = _or_field(lo, hi, dv, sh)
+    nb = torch.where(se, n0 + le + dn + de, 0).to(I32)
+    lo = torch.where(se, lo, 0)
+    hi = torch.where(se, hi, 0)
+    return hierarchical_pack(lo, hi, nb, out_bytes)
+
+
+def _stage2_fixed(flat, tok_len, tok_dist, sel, lane_block: int,
+                  out_bytes: int, demote: bool = True):
+    """Fixed-tree stage 2 over a lane group (the deflate_quick design
+    point): static codes in closed form, so no table, tree build or
+    frequency fetch. Returns (packed (B, qpl, out_bytes) uint8,
+    totals (B, qpl) int32 body bits)."""
+    qpl = lane_block // UNIT
+    B = tok_len.shape[0]
+    G = B * qpl
+    pay = _lane_slices(flat, LANE_HIST, lane_block, lane_block, B)
+    packed, totals = _render_pack_unit_fixed(
+        pay.reshape(G, UNIT), tok_len[:, LANE_HIST:].reshape(G, UNIT),
+        tok_dist[:, LANE_HIST:].reshape(G, UNIT),
+        sel[:, LANE_HIST:].reshape(G, UNIT), out_bytes, demote)
+    return packed.reshape(B, qpl, out_bytes), totals.reshape(B, qpl)
+
+
+def _compact_units(cols: list, nbytes: np.ndarray):
+    """Concatenate, unit by unit, the first nbytes[u, j] bytes of row u of
+    each (U, width) uint8 tensor cols[j] (U = B * qpl; nbytes a (U, len(
+    cols)) host array) into one flat buffer: the fetch shrinks from the
+    buckets to the compressed size. Returns (sum(nbytes),) uint8 on the
+    device."""
+    parts = [col[u, :n] for u in range(nbytes.shape[0])
+             for col, n in zip(cols, nbytes[u].tolist()) if n]
     if not parts:
-        return body.new_zeros(0)
+        return cols[0].new_zeros(0)
     return torch.cat(parts)
 
 
@@ -460,26 +570,6 @@ class _BitStitcher:
         return bytes(self.buf)
 
 
-def _check_slice(level: int, strategy: int, lc: LevelConfig) -> None:
-    """Raise NotImplementedError for what this port does not cover yet."""
-    if level == 0:
-        raise NotImplementedError(
-            "level 0 runs on the host encoder, not ported yet (ROADMAP "
-            "Queue 1, item 9: host encoder)")
-    if strategy == Z_FIXED or level == 1:
-        raise NotImplementedError(
-            "level 1 and Z_FIXED take the quick path, not ported yet "
-            "(ROADMAP Queue 1, item 8: L1 quick path, Z_FIXED and deep "
-            "probes)")
-    if level < 0:
-        raise NotImplementedError(f"level {level}: the port covers 2-9")
-    if lc.chain > DENSE_PROBES:
-        raise NotImplementedError(
-            "tune.chain > 64 needs the compacted deep probes, not ported "
-            "yet (ROADMAP Queue 1, item 8: L1 quick path, Z_FIXED and deep "
-            "probes)")
-
-
 # ---------------------------------------------------------------------------
 # main entry
 # ---------------------------------------------------------------------------
@@ -490,12 +580,16 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                          device="cuda") -> bytes:
     """Raw DEFLATE payload of `buf` (uint8, >= 1 byte) on `device`.
     `tune` (any object with chain/lazy/max_lazy/nice/good) overrides the
-    level's match-engine knobs; `max_dist` bounds match distances."""
+    level's match-engine knobs; `max_dist` bounds match distances. Levels
+    below 1 and above 9 take L1's and L9's engine."""
     dev = _device(device)
     lc = level_config_from(tune) if tune is not None \
         else LEVELS[max(1, min(9, level))]
-    _check_slice(level, strategy, lc)
     s1_strategy = strategy if strategy in (1, 2, 3) else 0
+    # fixed-tree quick path (deflate_quick, L1 in zlib-ng's
+    # configuration_table, deflate.c:142-152): Z_FIXED at any level, and
+    # L1 with the default strategy
+    quick = strategy == Z_FIXED or (level == 1 and strategy == 0)
     n = buf.size
     # lane geometry by input size: minimize processed positions (history
     # prefix + zero tail), ties to bigger lanes
@@ -546,13 +640,14 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
         enc_ends_d = torch.from_numpy(enc_ends).to(dev)
         with span("deflate stage1 dispatch lanes[%d:%d] Bpad=%d", g0, g1,
                   Bpad):
-            toks, lfreqs_d, dfreqs_d = _stage1(
+            toks, a_d, b_d = _stage1(
                 flat_d, enc_ends_d, torch.from_numpy(hist_valids).to(dev),
                 lane_block, lc.chain, lc.lazy, lc.max_lazy, lc.nice,
-                s1_strategy, lc.good, max_dist=max_dist)
+                s1_strategy, lc.good, max_dist=max_dist, quick=quick)
+        # the quick product is each unit's static body bits, not counts
+        s1 = dict(fb_d=a_d) if quick else dict(lfreqs_d=a_d, dfreqs_d=b_d)
         return dict(g0=g0, g1=g1, B=B, Bpad=Bpad, flat_d=flat_d, toks=toks,
-                    lfreqs_d=lfreqs_d, dfreqs_d=dfreqs_d, enc_ends=enc_ends,
-                    enc_ends_d=enc_ends_d)
+                    enc_ends=enc_ends, enc_ends_d=enc_ends_d, **s1)
 
     def _pick_out_bucket(g0: int, g1: int, enc_ends) -> int:
         """Body-pack bucket from per-unit byte entropy on the host, capped
@@ -575,8 +670,53 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                 return ob
         return OUT_BUCKETS[-1]
 
-    @clock.stage("stage2")
-    def _dispatch_stage2(gm: dict) -> None:
+    def _unit_lens(gm: dict) -> np.ndarray:
+        """(Bpad, qpl) payload bytes of each unit of the group (0 past a
+        lane's end and in the pad lanes, whose enc_end is LANE_HIST)."""
+        blen = gm["enc_ends"][:, None].astype(np.int64) - LANE_HIST
+        return np.clip(blen - UNIT * np.arange(qpl), 0, UNIT)
+
+    def _dispatch_stage2_quick(gm: dict) -> None:
+        """Fixed-tree stage 2: the host reads each unit's exact static
+        body bits, chooses stored units and the output bucket; every coded
+        unit is its own static block. L1 compacts the packed units at
+        host-known offsets (no demotion, so the bits are exact); Z_FIXED
+        demotes matches and fetches the buckets with the device's bits."""
+        g0, g1, Bpad = gm["g0"], gm["g1"], gm["Bpad"]
+        toks, flat_d = gm["toks"], gm["flat_d"]
+        fb = gm["fb_d"].cpu().numpy().astype(np.int64)   # (Bpad, qpl)
+        unit_lens = _unit_lens(gm)
+        # a unit is stored when its raw form beats its static block
+        coded = (unit_lens > 0) & ~(42 + 8 * unit_lens < fb + 10)
+        gm.update(unit_lens=unit_lens, coded=coded, flat_packed_d=None,
+                  packed_d=None)
+        if coded.any():
+            max_body_bits = int(fb[coded].max())
+            out_bytes = next((ob for ob in OUT_BUCKETS
+                              if max_body_bits <= (ob - 8) * 8),
+                             OUT_BUCKETS[-1])
+            args = (flat_d, toks["tok_len"], toks["tok_dist"], toks["sel"],
+                    lane_block, out_bytes)
+            if strategy == Z_FIXED:
+                with span("deflate stage2-fixed dispatch lanes[%d:%d] "
+                          "out=%d", g0, g1, out_bytes):
+                    gm["packed_d"], gm["totals_d"] = _stage2_fixed(
+                        *args, demote=True)
+            else:
+                nbytes = np.where(coded, (fb + 7) >> 3, 0)
+                gm["unit_off"] = (np.cumsum(nbytes) - nbytes.reshape(-1)) \
+                    .reshape(Bpad, qpl)
+                gm["unit_bits"] = fb
+                with span("deflate stage2-quick-compact lanes[%d:%d] "
+                          "out=%d bytes=%d", g0, g1, out_bytes,
+                          int(nbytes.sum())):
+                    packed, _ = _stage2_fixed(*args, demote=False)
+                    gm["flat_packed_d"] = _compact_units(
+                        [packed.reshape(Bpad * qpl, out_bytes)],
+                        nbytes.reshape(-1, 1))
+        del gm["toks"], gm["flat_d"], gm["fb_d"]
+
+    def _dispatch_stage2_auto(gm: dict) -> None:
         """Stage 2 on the device; the host fetches the per-unit descriptor
         and (unless the whole group went stored) one compact buffer."""
         g0, g1, Bpad = gm["g0"], gm["g1"], gm["Bpad"]
@@ -633,14 +773,65 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                     nbytes[u, 1] = (body_bits + 7) >> 3
                     cur += nbytes[u, 1]
             gm["flat_packed_d"] = _compact_units(
-                body.reshape(Bpad * qpl, -1), hdr.reshape(Bpad * qpl, -1),
-                offs, nbytes)
+                [hdr.reshape(Bpad * qpl, -1), body.reshape(Bpad * qpl, -1)],
+                nbytes)
             gm["unit_off"] = offs.reshape(Bpad, qpl, 2)
         gm["meta"] = meta_np
         del gm["toks"], gm["flat_d"], gm["lfreqs_d"], gm["dfreqs_d"]
 
-    @clock.stage("stitch", on_device=False)
-    def _stitch(gm: dict) -> None:
+    @clock.stage("stage2")
+    def _dispatch_stage2(gm: dict) -> None:
+        if quick:
+            _dispatch_stage2_quick(gm)
+        else:
+            _dispatch_stage2_auto(gm)
+
+    def _append_stored(bi: int, q: int, ul: int, blen: int) -> None:
+        """A stored block of unit q of lane bi, straight from the input."""
+        final = (bi == nblocks - 1) and (q * UNIT + ul == blen)
+        pad = (8 - ((stitch.bits + 3) & 7)) & 7
+        stitch.append_tokens([(int(final), 1), (0, 2), (0, pad),
+                              (ul, 16), (~ul & 0xFFFF, 16)])
+        off = LANE_HIST + bi * lane_block + q * UNIT
+        stitch.append(vbuf[off:off + ul], ul * 8)
+
+    def _stitch_quick(gm: dict) -> None:
+        flat_pk = gm["flat_packed_d"].cpu().numpy() \
+            if gm["flat_packed_d"] is not None else None
+        packed = totals = None
+        if gm["packed_d"] is not None:
+            packed = gm["packed_d"].cpu().numpy()      # (Bpad, qpl, out)
+            totals = gm["totals_d"].cpu().numpy()      # (Bpad, qpl)
+        unit_lens, coded = gm["unit_lens"], gm["coded"]
+        # BFINAL on the stream's last unit's 3-bit header when it is coded
+        last = None
+        if gm["g1"] == nblocks:
+            i_last = gm["g1"] - gm["g0"] - 1
+            last = (i_last, (int(gm["enc_ends"][i_last]) - LANE_HIST - 1)
+                    // UNIT)
+        eob = (int(FIXED_LIT_CODES_REV[256]), 7)
+        for i, bi in enumerate(range(gm["g0"], gm["g1"])):
+            blen = int(gm["enc_ends"][i]) - LANE_HIST
+            for q in range(qpl):
+                ul = int(unit_lens[i, q])
+                if ul == 0:
+                    continue
+                if not coded[i, q]:
+                    _append_stored(bi, q, ul, blen)
+                    continue
+                stitch.append_tokens([(int(last == (i, q)) | (1 << 1), 3)])
+                if flat_pk is not None:
+                    bits = int(gm["unit_bits"][i, q])
+                    off = int(gm["unit_off"][i, q])
+                    stitch.append(flat_pk[off: off + ((bits + 7) >> 3)],
+                                  bits)
+                else:
+                    stitch.append(packed[i, q], int(totals[i, q]))
+                stitch.append_tokens([eob])
+        gm.pop("flat_packed_d", None)
+        gm.pop("packed_d", None)
+
+    def _stitch_auto(gm: dict) -> None:
         meta = gm["meta"]
         flat_pk = gm["flat_packed_d"].cpu().numpy() \
             if gm["flat_packed_d"] is not None else None
@@ -670,13 +861,7 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                     continue
                 body_bits, hdr_bits, desc = (int(x) for x in meta[i, q])
                 if desc & 3 == 0:                      # stored
-                    final = (bi == nblocks - 1) and (q * UNIT + ul == blen)
-                    pad = (8 - ((stitch.bits + 3) & 7)) & 7
-                    stitch.append_tokens([
-                        (int(final), 1), (0, 2), (0, pad),
-                        (ul, 16), (~ul & 0xFFFF, 16)])
-                    off = LANE_HIST + bi * lane_block + q * UNIT
-                    stitch.append(vbuf[off:off + ul], ul * 8)
+                    _append_stored(bi, q, ul, blen)
                     continue
                 if (desc >> 2) & 1:                    # first of block
                     ho = int(offs[i, q, 0])
@@ -706,6 +891,13 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                               " OVERRUN" if over else "")
         gm.pop("flat_packed_d", None)
 
+    @clock.stage("stitch", on_device=False)
+    def _stitch(gm: dict) -> None:
+        if quick:
+            _stitch_quick(gm)
+        else:
+            _stitch_auto(gm)
+
     # software pipeline over lane groups: stage 1 of the next groups is
     # queued before stage 2 and the stitch of the earlier ones
     inflight: list[dict] = []
@@ -732,18 +924,19 @@ def compress_cuda(data, level: int = 6, wbits: int = 15,
                   dictionary: bytes | None = None, tune=None,
                   device="cuda") -> bytes:
     """One-shot compression with zlib (wbits 8..15), gzip (16+) or raw
-    (-8..-15) framing, on the card unless device="cpu". Byte-identical to
-    zlibng_tpu's compress_tpu for levels 2-9, strategies 0-3, inputs of at
-    least 1024 bytes and tune.chain <= 64; the rest raises
-    NotImplementedError."""
+    (-8..-15) framing, on the card unless device="cpu"; byte-identical to
+    zlibng_tpu's compress_tpu for every level (-1 and above 9 take L1's
+    and L9's engine), strategy 0-4, windowBits, dictionary and `tune`.
+    Level 0 and inputs under 1024 bytes go to the host encoder
+    (stream/deflate.py), as compress_tpu routes them; it takes no
+    `tune`."""
     if not (-15 <= wbits <= 31):
         raise StreamError("invalid windowBits")
     _device(device)
     buf = np.frombuffer(memoryview(bytes(data)), np.uint8)
-    if buf.size < 1024 and level != 0:
-        raise NotImplementedError(
-            "inputs under 1024 bytes run on the host encoder, not ported yet "
-            "(ROADMAP Queue 1, item 9: host encoder)")
+    if level == 0 or buf.size < 1024:
+        return compress_host(buf, level=level, wbits=wbits,
+                             strategy=strategy, dictionary=dictionary)
     payload = deflate_payload_cuda(buf, level, strategy, dictionary, tune,
                                    max_dist=effective_window(wbits),
                                    device=device)

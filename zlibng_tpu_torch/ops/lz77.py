@@ -8,7 +8,8 @@ handed to K1 are their int32 bit patterns.
   * one stable sort on the hash gives the (hash, pos) order (positions
     start ascending), and the probe planes follow it by gather
   * K1 (ops/probe.py) keeps, per sorted row, the best of its `dense`
-    nearest same-hash predecessors
+    nearest same-hash predecessors; for tuned chains beyond 64, the deep
+    probes go on for the rows that still hunt
   * rows whose 16-byte probe matched in full are extended column-wise
   * the dist-1 run prepass, the minimum/too-far filters and the one-step
     lazy rule set each position's step; K2 (ops/parse.py) walks them
@@ -23,13 +24,18 @@ from .probe import NEG, _ctz_bytes32, probe_best
 
 # probe width in 4-byte words (16-byte probes), as in the reference
 PROBE_WORDS = 4
-# dense probes cover every shipped level's chain (<= 64); deeper tuned
-# chains need the compacted deep probes, not ported yet
+# dense probes (K1) cover every shipped level's chain (<= 64); deeper tuned
+# chains run the compacted deep probes on the rows that still hunt
 DENSE_PROBES = 64
 GOOD_L16 = 12
 GATE_DEPTH = 16
 # needy rows extended per batch of the wide extension (bounds memory only)
 _EXT_ROWS = 1 << 16
+# (row, probe) pairs per chunk of the deep probes (bounds memory only)
+_DEEP_PAIRS = 1 << 20
+# work of the deep probes so far (a run resets it): needy rows, probes per
+# row of the last call, chunks
+deep_stats = {"rows": 0, "k_steps": 0, "chunks": 0}
 
 _M32 = 0xFFFFFFFF
 
@@ -132,6 +138,55 @@ def _wide_extension(w4, need, best_cand, CX: int):
     return bi, pi, out
 
 
+def deep_probes(w2_s, h_sorted, pos_s, hv, best_score, best_cand_s,
+                enc_start: int, enc_end, dense: int, chain: int, good: int,
+                max_dist: int = WINDOW_SIZE) -> None:
+    """The compacted deep probes k = dense+1..chain (lz77_jax.py:255-312)
+    after K1's dense sweep, on K1's inputs and its (B, N) results, which
+    they update in place. Only rows that still hunt (best l16 < good),
+    can emit (enc_start <= pos < enc_end (B, 1)) and have a (dense+1)-th
+    same-hash predecessor (same-hash runs are contiguous) are probed.
+    Every probe of a row is scored at once; the best replaces the row's
+    best only if strictly greater, as k-by-k strict updates would:
+    distinct candidates of a row never tie on a valid score (l16 << 20
+    dominates any dist)."""
+    W = w2_s.shape[2]
+    dev = w2_s.device
+    kd = dense + 1
+    has_deeper = torch.zeros_like(h_sorted, dtype=torch.bool)
+    has_deeper[:, kd:] = h_sorted[:, kd:] == h_sorted[:, :-kd]
+    cur_l16 = torch.where(best_score > NEG,
+                          (best_score + (pos_s - best_cand_s)) >> 20, 0)
+    need = (has_deeper & (cur_l16 < max(4, min(good, 16)))
+            & (pos_s >= enc_start) & (pos_s < enc_end))
+    bi, si = need.nonzero(as_tuple=True)
+    ks = torch.arange(kd, chain + 1, dtype=torch.int64, device=dev)
+    rows = max(1, _DEEP_PAIRS // ks.numel())
+    deep_stats["rows"] += int(bi.numel())
+    deep_stats["k_steps"] = int(ks.numel())
+    deep_stats["chunks"] += -(-int(bi.numel()) // rows)
+    for lo in range(0, bi.numel(), rows):
+        b = bi[lo: lo + rows, None]
+        s = si[lo: lo + rows, None]
+        cidx = (s - ks).clamp(min=0)                            # (M, K)
+        x = w2_s[b, s] ^ w2_s[b, cidx]                          # (M, K, W)
+        l16 = _ctz_bytes32(x[..., W - 1])
+        for w in range(W - 2, -1, -1):
+            l16 = torch.where(x[..., w] != 0, _ctz_bytes32(x[..., w]),
+                              4 + l16)
+        cpos = pos_s[b, cidx]
+        dist = pos_s[b, s] - cpos
+        ok = ((h_sorted[b, s] == h_sorted[b, cidx]) & (cpos >= hv[b])
+              & (dist <= max_dist) & (dist > 0) & (s >= ks))
+        score = torch.where(ok, (l16 << 20) - dist, NEG)
+        top, arg = score.max(1)
+        b, s = b[:, 0], s[:, 0]
+        better = top > best_score[b, s]
+        best_score[b, s] = torch.where(better, top, best_score[b, s])
+        best_cand_s[b, s] = torch.where(
+            better, cpos.gather(1, arg[:, None])[:, 0], best_cand_s[b, s])
+
+
 def lz77_lane(data: torch.Tensor, enc_start: int, enc_end: torch.Tensor,
               hist_valid_from: torch.Tensor, chain: int, lazy: bool,
               max_lazy: int, nice: int = 258, unit: int = 0,
@@ -145,12 +200,9 @@ def lz77_lane(data: torch.Tensor, enc_start: int, enc_end: torch.Tensor,
     strategy: Z_HUFFMAN_ONLY (2) emits literals only; Z_RLE (3) matches
     only the distance-1 run prepass; Z_FILTERED (1) drops matches shorter
     than 6 (zlib-ng deflate.c:1036-1043 dispatch)."""
-    if chain > DENSE_PROBES:
-        raise NotImplementedError(
-            "chain > 64 needs the compacted deep probes (ROADMAP Queue 1, "
-            "item 8: L1 quick path, Z_FIXED and deep probes)")
     if strategy not in (0, 1, 2, 3):
-        raise NotImplementedError(f"lz77_lane: strategy {strategy}")
+        raise ValueError(f"lz77_lane: strategy {strategy} (Z_FIXED parses "
+                         "as strategy 0)")
     use_probes = strategy not in (2, 3)
     use_runs = strategy != 2
     min_keep = 6 if strategy == 1 else MIN_MATCH
@@ -171,9 +223,14 @@ def lz77_lane(data: torch.Tensor, enc_start: int, enc_end: torch.Tensor,
         w2_s, h_sorted, pos_s, order = sorted_probe_rows(w4, N)
         dense = min(chain, DENSE_PROBES)
         good_l16 = max(4, min(good, 4 * PROBE_WORDS))
+        hv_b = hist_valid_from.to(I32).contiguous()
         best_score, best_cand_s = probe_best(
-            w2_s, h_sorted, pos_s, hist_valid_from.to(I32).contiguous(),
-            dense, GATE_DEPTH, good_l16, max_dist=max_dist)
+            w2_s, h_sorted, pos_s, hv_b, dense, GATE_DEPTH, good_l16,
+            max_dist=max_dist)
+        if chain > dense:
+            deep_probes(w2_s, h_sorted, pos_s, hv_b, best_score,
+                        best_cand_s, enc_start, enc_end, dense, chain, good,
+                        max_dist)
         # pack (valid, l16, cand) and scatter back to position order
         pos_bits = max(17, (N - 1).bit_length())
         valid_s = best_score > NEG
