@@ -11,13 +11,23 @@ prefix and on the whole corpus) and the JAX reference's pinned digest
 (`STREAMS`), and the run must go through both kernels. Then a tuned chain
 of 128 (the deep probes) on one 2 MiB lane group, held to the reference's
 digest too (`DEEP_STREAM`), and the host encoder's
-inputs (level 0, tiny inputs), which must launch no kernel. Then it holds
-each kernel (K1 probe sweep, K2 parse walk) against its plain PyTorch
-version at the main path's shapes (K2 also on raw steps, on step arrays
-that defeat its speculation or test its step arithmetic, and on edge
-bounds), and last runs torch.profiler: K2's device time by phase, the
-deep probes' launches, and one lane group at L6, L1 and Z_FIXED (with
-stage 1's share of its launches, counted in the same session). Prints
+inputs (level 0, tiny inputs), which must launch no kernel. Then decode:
+decompress_indexed_cuda on the whole corpus (stdlib zlib L6 with a full
+flush every 1 MiB: on the device path, one K2 launch per phase A
+dispatch), decompress_cuda(engine="device") of the port's L1 stream and
+zlib's L6 stream on the card, and of the port's L6 stream, which phase A
+gives up to the host's serial decoder (a block longer than the largest
+lane), framings and options and corrupt streams on a 64 KiB prefix (each
+on its asserted route, against zlib and the CPU port), and the device
+checksums.
+Then it holds each kernel (K1 probe sweep, K2 parse walk) against its
+plain PyTorch version at the main path's shapes (K2 also on raw steps, on
+step arrays that defeat its speculation or test its step arithmetic, on
+edge bounds, and on decode phase A's bit steps at 16 lanes of 1,048,576
+bits), and last runs torch.profiler: K2's device time by phase, the deep
+probes' launches, one lane group at L6, L1 and Z_FIXED (with stage 1's
+share of its launches, counted in the same session), and one warm indexed
+decode (device events, idle share, top kernels). Prints
 per-phase seconds, per-kernel timings, a `kernels` JSON line, the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when any phase fails or no CUDA device
@@ -58,6 +68,8 @@ STREAMS = {(6, 0): (3703261, "b2e5193bf13fdc9f"),
            (9, 0): (3680619, "edbde05b1a5bf4d1"),
            (1, 0): (4689779, "e34f059d648156fb"),
            (6, 4): (4519653, "1be0edb528b1f41a")}
+# the indexed decode's segment (compress_indexed's default)
+DECODE_SEGMENT = 1 << 20
 # the deep-probe phase's tune: chain 128 = K1's 64 dense probes + 64 deep
 DEEP_TUNE = dict(chain=128, lazy=True, max_lazy=258, nice=258, good=12)
 # compress_tpu's stream of the corpus's first 2 MiB at L6 with DEEP_TUNE
@@ -264,7 +276,8 @@ def _k2_case(name: str, step: torch.Tensor, bounds: torch.Tensor,
           f"ms ({by}); segments repaired {rep}, cleared {clr}", flush=True)
     return dict(name=name, step=step, bounds=bounds, reps=reps,
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, stops=stops, repaired=rep, cleared=clr)
+                bound_by=by, stops=stops, repaired=rep, cleared=clr,
+                per_lane=stats.tolist(), stops_per_lane=ps.sum(1).tolist())
 
 
 def _k2_adversarial(B: int, N: int, dev) -> dict:
@@ -290,6 +303,19 @@ def _k2_adversarial(B: int, N: int, dev) -> dict:
     out["all-literal fused"] = parse.fused_steps(
         torch.ones((B, N), dtype=torch.int32, device=dev))
     return out
+
+
+def check_k2_decode(wave: tuple, rows: list, launches: int) -> dict:
+    """K2 on decode phase A's bit steps (indexed_decode's wave): equal to
+    its plain version; stops, repaired and cleared segments per lane."""
+    step, bounds = wave
+    row = _k2_case("decode bit-steps, indexed, cb 131072", step, bounds)
+    print("K2 decode bit-steps per lane (stops, repaired, cleared): "
+          + "; ".join(f"{s} {r} {c}" for s, (r, c) in
+                      zip(row["stops_per_lane"], row["per_lane"])),
+          flush=True)
+    rows.append(dict(row, launches=launches))
+    return row
 
 
 def check_k2(lanes: torch.Tensor, rows: list) -> list:
@@ -455,7 +481,7 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
           f"stage2 {stages['stage2']:.3f} s, stitch {stages['stitch']:.3f} s",
           flush=True)
     return dict(level=level, launches=launches, size=len(out),
-                warm_s=warm, mb_s=mbs, stages=stages)
+                warm_s=warm, mb_s=mbs, stages=stages, stream=out)
 
 
 def deep_path(data: bytes) -> dict:
@@ -519,6 +545,316 @@ def host_route(data: bytes) -> None:
         raise AssertionError(f"host route launched kernels: K1 "
                              f"{probe.launches}, K2 {parse.launches}")
     print("host route: no kernel launched (K1 0, K2 0)", flush=True)
+
+
+def indexed_blob(data: bytes, segment: int = DECODE_SEGMENT
+                 ) -> tuple[bytes, object]:
+    """Raw deflate of `data` by stdlib zlib at level 6 with a Z_FULL_FLUSH
+    every `segment` bytes, and its StreamIndex (the port's)."""
+    from zlibng_tpu_torch.parallel.index import StreamIndex
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    blob = bytearray()
+    idx = StreamIndex()
+    for pos in range(0, len(data), segment):
+        idx.comp_offsets.append(len(blob))
+        idx.out_offsets.append(pos)
+        last = pos + segment >= len(data)
+        blob += co.compress(data[pos:pos + segment]) + co.flush(
+            zlib.Z_FINISH if last else zlib.Z_FULL_FLUSH)
+    idx.comp_offsets.append(len(blob))
+    idx.out_offsets.append(len(data))
+    idx.total_out = len(data)
+    return bytes(blob), idx
+
+
+def _decode_run(fn) -> dict:
+    """fn() with K2's launch counter set to 0 just before and read just
+    after; the change in ops/inflate.py's `stats`, the wave engine's split
+    and fallback cause, and the text of the DataError fn raised (None if
+    none); wall seconds on the host's clock."""
+    from zlibng_tpu_torch.errors import DataError
+    from zlibng_tpu_torch.ops import inflate, parse
+    before = dict(inflate.stats)
+    parse.launches = 0
+    out = error = None
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    except DataError as e:
+        error = str(e)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return dict(out=out, error=error, s=sec, k2=parse.launches,
+                stats={k: inflate.stats[k] - before[k] for k in before},
+                split=dict(inflate.decode_stats))
+
+
+def _route(r: dict) -> str:
+    """Which route a decode took, from its `stats` change: "device",
+    "fallback" (the wave engine gave the stream up to the serial decoder)
+    or "host"; AssertionError unless exactly one was counted."""
+    names = {"device_ok": "device", "fallback": "fallback",
+             "host_routed": "host"}
+    taken = [k for k, v in r["stats"].items() if v]
+    if len(taken) != 1 or r["stats"][taken[0]] != 1 or taken[0] not in names:
+        raise AssertionError(f"decode counted {r['stats']}")
+    return names[taken[0]]
+
+
+def _device_route(name: str, r: dict, cause: str | None = None) -> None:
+    """r went through phase A on the card, one K2 launch per dispatch, and
+    ended on the device (cause None) or was given up by the wave engine
+    for `cause`."""
+    route, sp = _route(r), r["split"]
+    want = "device" if cause is None else "fallback"
+    if route != want or sp["fallback_cause"] != cause:
+        raise AssertionError(f"{name}: route {route} ({sp['fallback_cause']})"
+                             f", not {want} ({cause})")
+    if r["k2"] == 0 or r["k2"] != sp["phase_a"]:
+        raise AssertionError(f"{name}: K2 launches {r['k2']} != phase A "
+                             f"dispatches {sp['phase_a']}")
+
+
+def _split(r: dict) -> str:
+    sp = r["split"]
+    return (f"waves {sp['waves']}, phase A dispatches {sp['phase_a']}, K2 "
+            f"launches {r['k2']}; {r['s']:.3f} s = "
+            f"{len(r['out']) / r['s'] / 1e6:.3f} MB/s out; split phase A "
+            f"{sp['phase_a_s']:.3f} s / phase B {sp['phase_b_s']:.3f} s / "
+            f"host {sp['total_s'] - sp['phase_a_s'] - sp['phase_b_s']:.3f} s "
+            f"(+ {r['s'] - sp['total_s']:.3f} s outside the wave engine)")
+
+
+def indexed_decode(data: bytes) -> dict:
+    """decompress_indexed_cuda on the whole corpus (9 segments of 1 MiB),
+    cold then warm: equal to the corpus, on the device path with no
+    fallback, one K2 launch per phase A dispatch. The cold run also keeps
+    K2's inputs at the largest lane (cb = 131,072, N = 1,048,576 bits) of
+    its first dispatches, and returns 16 real lanes of them (padding lanes
+    dropped) as `wave`: K2's decode traffic for check_k2_decode."""
+    from zlibng_tpu_torch.ops import inflate, parse
+    from zlibng_tpu_torch.parallel.index import decompress_indexed_cuda
+    blob, idx = indexed_blob(data)
+    sizes = np.diff(idx.comp_offsets).tolist()
+    print(f"indexed blob: {len(blob)} B in {len(sizes)} segments of "
+          f"{DECODE_SEGMENT} B (stdlib zlib L6, raw, Z_FULL_FLUSH): "
+          f"compressed sizes {sizes}", flush=True)
+    k2, kept = parse._parse_select_cuda, []
+    n_big = 8 * inflate._CB_BUCKETS[-1]
+
+    def keep(step, bounds):
+        # padding at most doubles a dispatch: 32 rows hold 16 real lanes
+        if step.shape[1] == n_big and sum(s.shape[0] for s, _ in kept) < 32:
+            kept.append((step, bounds))
+        return k2(step, bounds)
+
+    runs = []
+    for run in ("cold", "warm"):
+        parse._parse_select_cuda = keep if run == "cold" else k2
+        try:
+            r = _decode_run(lambda: decompress_indexed_cuda(blob, idx))
+        finally:
+            parse._parse_select_cuda = k2
+        if r["out"] != data:
+            raise AssertionError(f"indexed decode ({run}): output differs "
+                                 f"from the corpus ({r['error']})")
+        _device_route(f"indexed decode ({run})", r)
+        print(f"indexed decode ({run}): {len(blob)} B -> {len(r['out'])} B, "
+              f"equal to the corpus; stats change {r['stats']}; "
+              + _split(r), flush=True)
+        runs.append(r)
+    # a padding lane (mask 0) decodes every position as invalid: all 1<<26
+    step = torch.cat([s for s, _ in kept])
+    bounds = torch.cat([b for _, b in kept])
+    real = (step != inflate._BIG).any(1)
+    if int(real.sum()) < 16:
+        raise AssertionError(f"indexed decode: {int(real.sum())} real lanes "
+                             f"at cb {inflate._CB_BUCKETS[-1]}, not 16")
+    print(f"K2 decode inputs kept from the cold run: {len(kept)} dispatches "
+          f"at cb {inflate._CB_BUCKETS[-1]} of {[s.shape[0] for s, _ in kept]}"
+          f" lanes, {int(real.sum())} real; the first 16 real", flush=True)
+    return dict(blob=blob, idx=idx, launches=runs[0]["k2"],
+                warm_s=runs[1]["s"], wave=(step[real][:16].contiguous(),
+                                           bounds[real][:16].contiguous()))
+
+
+def single_decode(data: bytes, streams: dict) -> None:
+    """decompress_cuda(engine="device") of whole-corpus zlib streams, one
+    block per wave: equal to the corpus, each on the route it must take.
+    streams maps a name to (stream, fallback cause): None for a stream
+    the card decodes; else the cause for which the wave engine gives the
+    stream up to the host's serial decoder after phase A has run on the
+    card (a block longer than the largest lane, as in the reference),
+    and the stream counts as a host decode."""
+    from zlibng_tpu_torch import decompress_cuda
+    for name, (stream, cause) in streams.items():
+        r = _decode_run(lambda: decompress_cuda(stream, engine="device"))
+        if r["out"] != data:
+            raise AssertionError(f"single-stream decode {name}: output "
+                                 f"differs from the corpus ({r['error']})")
+        _device_route(f"single-stream decode {name}", r, cause)
+        if cause is None:
+            print(f"single-stream decode of {name} ({len(stream)} B) on the "
+                  f"card: equal to the corpus; stats change {r['stats']}; "
+                  + _split(r), flush=True)
+            continue
+        sp = r["split"]
+        print(f"single-stream decode of {name} ({len(stream)} B): a HOST "
+              f"decode: the card's phase A gave it up after {sp['phase_a']} "
+              f"dispatches ({sp['phase_a_s']:.3f} s; cause: {cause}), then "
+              f"the serial decoder took {r['s'] - sp['total_s']:.3f} s; "
+              f"equal to the corpus; {r['s']:.3f} s in all; stats change "
+              f"{r['stats']}", flush=True)
+
+
+def _mixed_blocks(parts: list) -> bytes:
+    """One raw stream of a fixed-tree, a stored and a dynamic piece (each
+    piece its own compressor, joined at byte-aligned sync flushes)."""
+    out = b""
+    for i, (level, strategy, piece) in enumerate(parts):
+        co = zlib.compressobj(level, zlib.DEFLATED, -15, 8, strategy)
+        out += co.compress(piece) + co.flush(
+            zlib.Z_FINISH if i == len(parts) - 1 else zlib.Z_SYNC_FLUSH)
+    return out
+
+
+def decode_options(data: bytes) -> None:
+    """Framing and options on a 64 KiB prefix (the host's CRC-32 is a
+    Python loop): each decode on the card equal to stdlib zlib's and to the
+    CPU port's, on the device path; the host engine launches no kernel."""
+    from zlibng_tpu_torch import decompress_cuda
+    small = data[: 1 << 16]
+    dct = data[1 << 16: (1 << 16) + 30000]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = co.compress(small) + co.flush()
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 8, 0, dct)
+    with_dict = co.compress(small) + co.flush()
+    co = zlib.compressobj(6, zlib.DEFLATED, -9)
+    raw9 = co.compress(small) + co.flush()
+    co = zlib.compressobj(6, zlib.DEFLATED, 9)
+    z9 = co.compress(small) + co.flush()
+    mixed = _mixed_blocks([(6, zlib.Z_FIXED, small[:20000]),
+                           (0, 0, small[20000:40000]), (6, 0, small)])
+    cases = [("gzip, wbits=31", gzip.compress(small), dict(wbits=31), small),
+             ("gzip, auto wbits=47", gzip.compress(small), dict(wbits=47),
+              small),
+             ("zlib, auto wbits=47", zlib.compress(small), dict(wbits=47),
+              small),
+             ("raw, wbits=-15", raw, dict(wbits=-15), small),
+             ("preset dictionary", with_dict, dict(dictionary=dct), small),
+             ("raw, wbits=-9", raw9, dict(wbits=-9), small),
+             ("zlib, window 512 (wbits=9)", z9, dict(wbits=9), small),
+             ("fixed + stored + dynamic blocks", mixed, dict(wbits=-15),
+              small[:40000] + small)]
+    for name, stream, kw, want in cases:
+        do = zlib.decompressobj(kw.get("wbits", 15),
+                                **({"zdict": kw["dictionary"]}
+                                   if "dictionary" in kw else {}))
+        ref = do.decompress(stream) + do.flush()
+        r = _decode_run(lambda: decompress_cuda(stream, **kw))
+        if r["out"] != want or ref != want:
+            raise AssertionError(f"decode {name}: differs from zlib")
+        if decompress_cuda(stream, device="cpu", **kw) != r["out"]:
+            raise AssertionError(f"decode {name}: differs from the CPU port")
+        _device_route(f"decode {name}", r)
+        print(f"decode {name}: {len(stream)} B -> {len(want)} B equal to "
+              f"zlib and the CPU port; device path, waves "
+              f"{r['split']['waves']}, K2 launches {r['k2']}; {r['s']:.3f} s",
+              flush=True)
+    r = _decode_run(lambda: decompress_cuda(zlib.compress(small),
+                                            engine="host"))
+    if r["out"] != small or _route(r) != "host" or r["k2"]:
+        raise AssertionError(f"decode, host engine: {r['stats']}, "
+                             f"K2 {r['k2']}")
+    print(f"decode, host engine (64 KiB, the port's numpy serial "
+          f"decoder): equal; no kernel launched; {r['s']:.3f} s", flush=True)
+
+
+# corrupt streams of decode_errors: what each must raise, and the cause
+# for which the card's wave engine gives it up (None: the card decodes
+# the body, and the host's trailer check rejects it)
+CORRUPT = {"byte 300 flipped": ("invalid distance too far back",
+                                "distance before the window or dictionary"),
+           "byte 1000 flipped": ("invalid distance too far back",
+                                 "distance before the window or dictionary"),
+           "byte -6 flipped": ("unexpected end of stream",
+                               "no end-of-block before the stream's end"),
+           "truncated to 100 B": ("unexpected end of stream",
+                                  "no end-of-block before the stream's end"),
+           "Z_FIXED, byte 20000 ^ 0x10": ("invalid distance code",
+                                          "invalid code"),
+           "bad adler32 trailer": ("incorrect data check", None)}
+
+
+def decode_errors(data: bytes) -> None:
+    """Corrupt, truncated and bad-trailer zlib streams of a 64 KiB prefix
+    (CORRUPT): each must go through phase A on the card (one K2 launch per
+    dispatch) and be rejected there for its cause, or decode there and
+    fail the trailer check; its error text (from the serial rerun, for
+    zlib's wording), route and cause equal to the CPU port's."""
+    from zlibng_tpu_torch import decompress_cuda
+    small = data[: 1 << 16]
+    base = zlib.compress(small, 6)
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 8, zlib.Z_FIXED)
+    fixed = co.compress(small) + co.flush()
+
+    def flip(buf: bytes, at: int, mask: int = 0xFF) -> bytes:
+        c = bytearray(buf)
+        c[at] ^= mask
+        return bytes(c)
+
+    cases = {"byte 300 flipped": flip(base, 300),
+             "byte 1000 flipped": flip(base, 1000),
+             "byte -6 flipped": flip(base, len(base) - 6),
+             "truncated to 100 B": base[:100],
+             "Z_FIXED, byte 20000 ^ 0x10": flip(fixed, 20000, 0x10),
+             "bad adler32 trailer": flip(base, len(base) - 1)}
+    for name, c in cases.items():
+        text, cause = CORRUPT[name]
+        card = _decode_run(lambda: decompress_cuda(c))
+        cpu = _decode_run(lambda: decompress_cuda(c, device="cpu"))
+        _device_route(f"corrupt stream {name}", card, cause)
+        if (card["error"], cpu["error"]) != (text, text) \
+                or (card["stats"], card["split"]["fallback_cause"],
+                    card["k2"]) != (cpu["stats"],
+                                    cpu["split"]["fallback_cause"],
+                                    cpu["split"]["phase_a"]):
+            raise AssertionError(f"corrupt stream {name}: card "
+                                 f"{card['error']!r} {card['stats']} K2 "
+                                 f"{card['k2']}, CPU "
+                                 f"{cpu['error']!r} {cpu['stats']}, want "
+                                 f"{text!r}")
+        print(f"corrupt stream, {name}: card and CPU port raise {text!r}; "
+              f"the card's wave engine ran {card['k2']} phase A dispatch(es)"
+              f" and " + (f"gave the stream up ({cause})" if cause else
+                          "decoded it, the host's trailer check failed"),
+              flush=True)
+
+
+def checksums(data: bytes) -> None:
+    """adler32_cuda and crc32_cuda of the corpus against zlib's, seeded
+    and not; cold call and median of 5 warm calls (host clock, upload and
+    result fetch included), beside zlib's time on the host."""
+    from zlibng_tpu_torch.ops.checksum import adler32_cuda, crc32_cuda
+    for name, fn, ref in (("adler32", adler32_cuda, zlib.adler32),
+                          ("crc32", crc32_cuda, zlib.crc32)):
+        t0 = time.perf_counter()
+        got = fn(data)
+        cold = time.perf_counter() - t0
+        warm = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(data)
+            warm.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        want = ref(data)
+        host = time.perf_counter() - t0
+        if got != want or fn(data, 0x12345678) != ref(data, 0x12345678):
+            raise AssertionError(f"{name}_cuda: {got:#x} != zlib {want:#x}")
+        print(f"{name}_cuda of {len(data)} B: {got:#010x}, equal to zlib "
+              f"(also seeded); cold {cold * 1e3:.2f} ms, warm "
+              f"{statistics.median(warm) * 1e3:.2f} ms; zlib on the host "
+              f"{host * 1e3:.2f} ms", flush=True)
 
 
 def _kernels(fn) -> tuple[list, list, float]:
@@ -599,6 +935,31 @@ def profile_group(data: bytes, level: int = 6, strategy: int = 0) -> None:
         deflate._stage1 = stage1
 
 
+def profile_decode(indexed: dict) -> None:
+    """One warm indexed decode of the corpus under torch.profiler: device
+    events, kernel time, the device's idle share of the call's wall time,
+    and the top kernels by device time."""
+    from zlibng_tpu_torch.parallel.index import decompress_indexed_cuda
+    dev, host, wall = _kernels(lambda: decompress_indexed_cuda(
+        indexed["blob"], indexed["idx"]))
+    if not dev:
+        print("profile indexed decode: the profiler saw no device events "
+              "(not measured)", flush=True)
+        return
+    mem = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    busy = sum(e.device_time for e in dev) / 1e6
+    by_name: dict[str, float] = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+    top = sorted(((t, n) for n, t in by_name.items()), reverse=True)[:6]
+    print(f"profile indexed decode: wall {wall:.3f} s (profiled), "
+          f"{len(dev)} device events ({len(dev) - mem} kernels, {mem} copies "
+          f"and fills), {sum(_is_launch(e) for e in host)} host launch "
+          f"calls; device time {busy:.4f} s, device idle share "
+          f"{1 - busy / wall:.4f}; top by device time: " + "; ".join(
+              f"{n[:60]} {t / 1e3:.2f} ms" for t, n in top), flush=True)
+
+
 def profile_deep(deep: dict) -> None:
     """CUDA kernel launches and device time of one call of the deep
     probes, from torch.profiler."""
@@ -655,12 +1016,25 @@ def main() -> int:
                              lv, st)
     phase("deep probes", deep_path, data)
     phase("host route", host_route, data)
+    # decode: the indexed path at full size first, then single streams,
+    # options, errors and the device checksums
+    indexed = phase("indexed decode", indexed_decode, data)
+    phase("single-stream decode", single_decode, data, {
+        "the port's L6 stream": (runs[6, 0]["stream"],
+                                 "block larger than the largest lane"),
+        "the port's L1 stream": (runs[1, 0]["stream"], None),
+        "stdlib zlib's L6 stream": (zlib.compress(data, 6), None)})
+    phase("decode framing and options", decode_options, data)
+    phase("decode errors", decode_errors, data)
+    phase("device checksums", checksums, data)
 
     dev = torch.device("cuda")
     lanes = first_group_lanes(data, dev)
     k1, k2 = [], []
     k1_inputs = phase("K1 check", check_k1, lanes, k1)
     k2_cases = phase("K2 check", check_k2, lanes, k2)
+    k2_cases.append(phase("K2 decode check", check_k2_decode,
+                          indexed.pop("wave"), k2, indexed["launches"]))
     deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
     check_estimate(lanes)
     del lanes, k1_inputs
@@ -671,6 +1045,7 @@ def main() -> int:
     del deep
     for lv, st in ((6, 0), (1, 0), (6, 4)):
         profile_group(data, lv, st)
+    profile_decode(indexed)
     print(f"phase profile: {time.perf_counter() - t0:.1f} s", flush=True)
 
     src = "zlibng_tpu_torch/csrc/"
@@ -686,12 +1061,14 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
     for row in k2:
-        lv = row["level"]
+        lv = row.get("level")
         kernels.append(dict(
-            name=f"K2 parse_select (fused steps, L{lv})", route="cuda",
+            name=(f"K2 parse_select (fused steps, L{lv})" if lv else
+                  f"K2 parse_select ({row['name']})"), route="cuda",
             source=src + "parse.cu",
             replaces="zlibng_tpu/ops/parse_pallas.py:26",
-            launches=runs[lv, 0]["launches"]["K2"],
+            launches=(runs[lv, 0]["launches"]["K2"] if lv
+                      else row["launches"]),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

@@ -1,10 +1,13 @@
 """The PyTorch port's routing: a CUDA request never carries on on the CPU
-(not even for the host encoder's inputs), wrappers route by tensor device,
-and the kernel build raises when it cannot run. Tests marked `gpu` hold
-the CUDA kernels against their plain versions and the card's output
-against the CPU's; without a card they skip. This file imports nothing of
+(not even for the host encoder's inputs or the host decode engine),
+wrappers route by tensor device, and the kernel build raises when it
+cannot run. Tests marked `gpu` hold the CUDA kernels against their plain
+versions and the card's output (compress, decode, checksums) against the
+CPU's; without a card they skip. This file imports nothing of
 JAX, so on a machine with a card and no JAX it runs as
 `python -m pytest --noconftest -m gpu tests/test_torch_cuda_path.py`."""
+import functools
+import gzip
 import inspect
 import zlib
 
@@ -12,10 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import zlibng_tpu_torch
-from zlibng_tpu_torch import _build, compress_cuda
-from zlibng_tpu_torch.errors import StreamError
-from zlibng_tpu_torch.ops import lz77, parse, probe
+from zlibng_tpu_torch import _build, compress_cuda, decompress_cuda
+from zlibng_tpu_torch.errors import DataError, StreamError
+from zlibng_tpu_torch.ops import checksum, inflate, lz77, parse, probe
+from zlibng_tpu_torch.parallel import index
 
 from torch_corpus import pigz, sample
 
@@ -165,3 +170,105 @@ def test_quick_path_on_card_matches_cpu(card, level, strategy):
     assert probe.launches > n0[0] and parse.launches > n0[1]
     assert got == compress_cuda(data, level, strategy=strategy, device="cpu")
     assert zlib.decompress(got) == data
+
+
+DECODE_ENTRIES = {
+    "decompress_cuda": lambda: decompress_cuda(zlib.compress(b"x" * 99)),
+    "decompress_cuda, host engine": lambda: decompress_cuda(
+        zlib.compress(b"x" * 99), engine="host"),
+    "inflate_raw_cuda": lambda: inflate.inflate_raw_cuda(b"\x03\x00"),
+    "decompress_segments_cuda": lambda: inflate.decompress_segments_cuda(
+        b"\x03\x00", [0]),
+    "decompress_indexed_cuda": lambda: index.decompress_indexed_cuda(
+        b"\x03\x00", index.StreamIndex([0, 2], [0, 0], 0)),
+    "adler32_cuda": lambda: checksum.adler32_cuda(b"abc"),
+    "crc32_cuda": lambda: checksum.crc32_cuda(b"abc"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_ENTRIES))
+def test_decode_entries_default_to_cuda(monkeypatch, name):
+    fn = {"decompress_cuda": decompress_cuda,
+          "decompress_cuda, host engine": decompress_cuda,
+          "inflate_raw_cuda": inflate.inflate_raw_cuda,
+          "decompress_segments_cuda": inflate.decompress_segments_cuda,
+          "decompress_indexed_cuda": index.decompress_indexed_cuda,
+          "adler32_cuda": checksum.adler32_cuda,
+          "crc32_cuda": checksum.crc32_cuda}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = (dict(inflate.stats), parse.launches)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DECODE_ENTRIES[name]()
+    assert (dict(inflate.stats), parse.launches) == before
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_streams() -> dict:
+    data = pigz()[:200000]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = co.compress(data) + co.flush()
+    dct = sample("text", 20000)
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 8, 0, dct)
+    with_dict = co.compress(data) + co.flush()
+    return {"L0": (zlib.compress(data, 0), {}, data),
+            "L1": (zlib.compress(data, 1), {}, data),
+            "L6": (zlib.compress(data, 6), {}, data),
+            "L9 runs": (zlib.compress(sample("runs", 150000), 9), {},
+                        sample("runs", 150000)),
+            "port L6": (compress_cuda(data, 6, device="cpu"), {}, data),
+            "gzip": (gzip.compress(data[:30000]), dict(wbits=31),
+                     data[:30000]),
+            "raw": (raw, dict(wbits=-15), data),
+            "dictionary": (with_dict, dict(dictionary=dct), data)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["L0", "L1", "L6", "L9 runs", "port L6",
+                                  "gzip", "raw", "dictionary"])
+def test_decode_on_card_matches_cpu(card, name):
+    stream, kw, want = _decode_streams()[name]
+    n0 = parse.launches
+    got = decompress_cuda(stream, engine="device", device=card, **kw)
+    assert got == want
+    assert got == decompress_cuda(stream, engine="device", device="cpu", **kw)
+    assert name == "L0" or parse.launches > n0
+
+
+@pytest.mark.gpu
+def test_indexed_decode_on_card_matches_cpu(card):
+    data = pigz() + sample("a16", 100000) + sample("zeros", 50000)
+    blob, idx = chip_smoke.indexed_blob(data, 1 << 17)
+    ok = inflate.stats["device_ok"]
+    n0 = parse.launches
+    assert index.decompress_indexed_cuda(blob, idx, device=card) == data
+    assert inflate.stats["device_ok"] == ok + 1
+    assert parse.launches - n0 == inflate.decode_stats["phase_a"]
+    assert index.decompress_indexed_cuda(blob, idx, device="cpu") == data
+
+
+@pytest.mark.gpu
+def test_decode_errors_on_card_match_cpu(card):
+    base = zlib.compress(pigz()[:60000], 6)
+    for flip in (300, 1000, len(base) - 6, len(base) - 1):
+        c = bytearray(base)
+        c[flip] ^= 0xFF
+        errs = []
+        for dev in (card, "cpu"):
+            try:
+                decompress_cuda(bytes(c), device=dev)
+                errs.append(None)
+            except DataError as e:
+                # the wave engine's cause too: the card's phase A rejected
+                # the body where the CPU's did
+                errs.append((str(e), inflate.decode_stats["fallback_cause"]))
+        assert errs[0] == errs[1] and errs[0] is not None, flip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 1023, 1025, 300000])
+def test_checksums_on_card(card, n):
+    data = sample("pigz", n)
+    assert checksum.adler32_cuda(data, device=card) == zlib.adler32(data)
+    assert checksum.crc32_cuda(data, device=card) == zlib.crc32(data)
+    assert checksum.crc32_cuda(data, 77, device=card) == zlib.crc32(data, 77)

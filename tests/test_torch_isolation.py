@@ -23,6 +23,9 @@ bad = [m for m in sys.modules
        if (m.startswith("jax") and sys.modules[m] is not None)
        or m == "zlibng_tpu" or m.startswith("zlibng_tpu.")]
 print(len(names), "MODULES")
+print("DECODE", all(f"zlibng_tpu_torch.{m}" in names for m in (
+    "ops.inflate", "ops.checksum", "parallel.index", "stream.inflate_serial",
+    "huffman.decode_tables")))
 print("BAD", sorted(bad))
 """
 
@@ -33,4 +36,5 @@ def test_port_imports_nothing_of_jax():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.splitlines()
     assert lines[-1] == "BAD []", out.stdout
-    assert int(lines[-2].split()[0]) >= 15    # every module was imported
+    assert lines[-2] == "DECODE True", out.stdout   # the decode slice too
+    assert int(lines[-3].split()[0]) >= 30    # every module was imported

@@ -227,3 +227,81 @@ def test_wrapper_sizes_match_the_kernel():
            / "parse.cu").read_text()
     consts = dict(re.findall(r"constexpr int (kSeg|kLead) = (\d+);", src))
     assert consts == {"kSeg": str(tparse.SEG), "kLead": str(tparse.LEAD)}
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_steps():
+    """Decode phase A's step array (`ops/inflate.py:_phase_a_steps`) of one
+    wave at cb = 2048 (N = 16,384 bits): a dynamic block that ends in an
+    EOB inside the lane (1 << 26, so the walk jumps to the end), a fixed
+    block, an invalid code, fixed tables over random bytes, a lane whose
+    block outruns it (no EOB), and the first lane again with its walk
+    starting mid-segment, at a true token start."""
+    import zlib as _zlib
+    from zlibng_tpu_torch.ops import inflate as ti
+    from zlibng_tpu_torch.stream.inflate_serial import RawInflater
+    from torch_corpus import crafted_streams, raw_deflate
+    rng = np.random.default_rng(8)
+    lanes = [raw_deflate(sample("pigz", 4000)),
+             raw_deflate(sample("text", 3000), strategy=_zlib.Z_FIXED),
+             crafted_streams()["invalid literal/length code"],
+             bytes([3]) + rng.integers(0, 256, 2047, np.uint8).tobytes(),
+             raw_deflate(sample("pigz", 60000))]
+    cb = 2048
+    B = len(lanes) + 1
+    comp = np.zeros(B * cb + cb, np.uint8)
+    tabs = [np.zeros((B, 48 + 288), np.int32), np.zeros((B, 48 + 30),
+                                                        np.int32)]
+    starts = np.zeros(B, np.int32)
+    bits = np.zeros(B, np.int32)
+    masks = [np.zeros(B, np.int32), np.zeros(B, np.int32)]
+    for i, raw in enumerate(lanes + lanes[:1]):
+        inf = RawInflater()
+        inf.feed(raw)
+        _, lt, dt, (wl, wd), sym_bit = ti._parse_header(inf, ti._Cursor(0,
+                                                                       None))
+        piece = np.frombuffer(raw, np.uint8)[sym_bit >> 3:][:cb]
+        comp[i * cb:i * cb + piece.size] = piece
+        starts[i] = i * cb
+        bits[i] = sym_bit & 7
+        for t, m, tab, w in ((tabs[0], masks[0], lt, wl),
+                             (tabs[1], masks[1], dt, wd)):
+            t[i, :tab.size] = tab
+            m[i] = (1 << w) - 1
+    args = [torch.from_numpy(a) for a in (comp, starts, tabs[0], tabs[1],
+                                          bits, masks[0], masks[1])]
+    step, bounds, kind, _, _ = ti._phase_a_steps(*args, cb, 1 << 15,
+                                                 1 << 15)
+    step, bounds = step.numpy(), bounds.numpy().copy()
+    # the last lane (lane 0 again) starts at its first true stop past 3000
+    walk = tparse.parse_select(torch.from_numpy(step[:1]),
+                               torch.from_numpy(bounds[:1])).numpy()[0]
+    bounds[-1, 0] = int(np.nonzero(walk & (np.arange(walk.size) > 3000))[0][0])
+    return step, bounds, kind.numpy()
+
+
+def test_bit_steps_have_decode_traffic():
+    step, bounds, kind = _bit_steps()
+    plain = tparse.parse_select(torch.from_numpy(step),
+                                torch.from_numpy(bounds)).numpy()
+    ends = [int(kind[b][plain[b]][-1]) for b in range(step.shape[0])]
+    # lanes 0, 1 and 5 end at an EOB, lane 2 at an invalid code, lane 4
+    # runs out of the lane with no EOB
+    assert ends[0] == ends[1] == ends[5] == 2 and ends[2] == 3
+    assert not (kind[4][plain[4]] >= 2).any()
+    assert set(np.unique(step).tolist()) <= set(range(1, 49)) | {BIG}
+    assert bounds[-1, 0] % tparse.SEG != 0
+
+
+@pytest.mark.parametrize("seg,lead", SV + [(tparse.SEG, tparse.LEAD)])
+def test_model_on_bit_steps(seg, lead):
+    step, bounds, _ = _bit_steps()
+    ref = np.asarray(_ref(jnp.asarray(step), jnp.asarray(bounds)))
+    plain = tparse.parse_select(torch.from_numpy(step),
+                                torch.from_numpy(bounds)).numpy()
+    np.testing.assert_array_equal(plain, ref)
+    got, c = _model(step, bounds, seg, lead)
+    np.testing.assert_array_equal(got, ref)
+    # a walk that ends at an EOB or invalid code jumps to the lane's end:
+    # every later segment whose lead-in walk guessed a stop is cleared
+    assert c["cleared"] > 0

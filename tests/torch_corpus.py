@@ -6,6 +6,7 @@ tests read nothing outside the repository.
 import functools
 import gzip
 import os
+import zlib
 
 import numpy as np
 import torch
@@ -61,3 +62,92 @@ def sample(name: str, n: int, seed: int = 0) -> bytes:
         src = {"pigz": pigz, "text": text, "cve": cve}[name]()
         return (src * (n // len(src) + 1))[:n]
     return synthetic(name, n, seed)
+
+
+def raw_deflate(data: bytes, level: int = 6, wbits: int = -15,
+                strategy: int = 0, mem: int = 8, zdict: bytes | None = None,
+                ) -> bytes:
+    """stdlib zlib's stream of `data` (raw for wbits < 0)."""
+    kw = {"zdict": zdict} if zdict else {}
+    co = zlib.compressobj(level, zlib.DEFLATED, wbits, mem, strategy, **kw)
+    return co.compress(data) + co.flush()
+
+
+class _Bits:
+    """LSB-first DEFLATE bit writer for hand-made streams."""
+
+    def __init__(self):
+        self.bits = []
+
+    def put(self, value: int, n: int) -> "_Bits":
+        self.bits += [(value >> i) & 1 for i in range(n)]
+        return self
+
+    def code(self, code: int, n: int) -> "_Bits":
+        """A Huffman code, most significant bit first."""
+        self.bits += [(code >> (n - 1 - i)) & 1 for i in range(n)]
+        return self
+
+    def bytes(self) -> bytes:
+        b = self.bits + [0] * (-len(self.bits) % 8)
+        return bytes(sum(b[i + j] << j for j in range(8))
+                     for i in range(0, len(b), 8))
+
+
+def _dyn_head(w: _Bits, cl: dict, hlit: int = 257, hdist: int = 1) -> _Bits:
+    """Final dynamic block header with code-length code lengths `cl`
+    ({symbol: length}), all 19 sent."""
+    order = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15]
+    w.put(1, 1).put(2, 2).put(hlit - 257, 5).put(hdist - 1, 5).put(15, 4)
+    for s in order:
+        w.put(cl.get(s, 0), 3)
+    return w
+
+
+def crafted_streams() -> dict:
+    """Raw DEFLATE streams that each reach one of zlib's error strings
+    (decoded as wbits=15 raw streams)."""
+    # CL code {0: '0', 1: '10', 2: '11'}
+    cl3 = {0: 1, 1: 2, 2: 2}
+    out = {
+        "block type 3": b"\x07\x00",
+        "stored lengths": b"\x01\x05\x00\x00\x00",
+        "too many symbols": bytes([0xFD, 0xFF, 0xFF]),
+        "truncated stored": b"\x01\x05\x00\xfa\xffab",
+        "empty input": b"",
+        # fixed block: literal 'a', then length 3 at distance 4 (too far)
+        "distance too far": _Bits().put(1, 1).put(1, 2).code(0x30 + 97, 8)
+        .code(1, 7).code(3, 5).code(0, 7).bytes(),
+        # fixed block: symbol 286 (code 11000110)
+        "invalid literal/length code": _Bits().put(1, 1).put(1, 2)
+        .code(0xC6, 8).bytes(),
+        # fixed block: length 3, then distance code 30 (11110)
+        "invalid distance code": _Bits().put(1, 1).put(1, 2).code(1, 7)
+        .code(30, 5).put(0, 16).bytes(),
+        # every code-length code of length 1: oversubscribed
+        "invalid code lengths set": _dyn_head(_Bits(), dict.fromkeys(
+            range(19), 1)).put(0, 16).bytes(),
+        # the first code length is a repeat (symbol 16)
+        "invalid bit length repeat": _dyn_head(_Bits(), {0: 1, 16: 1})
+        .code(1, 1).put(0, 16).bytes(),
+    }
+    # 258 zero lengths: no end-of-block code
+    w = _dyn_head(_Bits(), {0: 1, 1: 1})
+    for _ in range(258):
+        w.code(0, 1)
+    out["missing end-of-block"] = w.put(0, 16).bytes()
+    # literal/length lengths {0: 2, 256: 2}: incomplete
+    w = _dyn_head(_Bits(), cl3)
+    w.code(3, 2)
+    for _ in range(255):
+        w.code(0, 1)
+    out["invalid literal/lengths set"] = w.code(3, 2).code(3, 2).put(
+        0, 16).bytes()
+    # literal/length lengths {0: 1, 256: 1}, distance lengths {0: 2}
+    w = _dyn_head(_Bits(), cl3)
+    w.code(2, 2)
+    for _ in range(255):
+        w.code(0, 1)
+    out["invalid distances set"] = w.code(2, 2).code(3, 2).put(
+        0, 16).bytes()
+    return out

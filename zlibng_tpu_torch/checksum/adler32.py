@@ -1,7 +1,8 @@
 """Adler-32 checksum, vectorized in numpy (zlib-ng adler32.c semantics).
 
-Per-block (sum, weighted-sum) reductions merged in closed form, the same
-arithmetic as the numpy path of `zlibng_tpu/checksum/adler32.py`.
+Per-block (sum, weighted-sum) reductions merged in closed form, and the
+exact combine of two checksums: the numpy path of
+`zlibng_tpu/checksum/adler32.py`.
 """
 from __future__ import annotations
 
@@ -35,3 +36,16 @@ def adler32(data, value: int = 1) -> int:
         s2 = (s2 + np.uint64(m) * s1 + wsum) % np.uint64(_BASE)
         s1 = (s1 + csum) % np.uint64(_BASE)
     return int((s2 << np.uint64(16)) | s1)
+
+
+def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
+    """adler32(A||B) from adler32(A), adler32(B) and |B| = len2 (closed
+    form, zlib-ng adler32.c:32-55)."""
+    rem = len2 % _BASE
+    s1a = adler1 & 0xFFFF
+    s2a = (adler1 >> 16) & 0xFFFF
+    s1b = adler2 & 0xFFFF
+    s2b = (adler2 >> 16) & 0xFFFF
+    s1 = (s1a + s1b + _BASE - 1) % _BASE
+    s2 = (s2a + s2b + rem * s1a + _BASE - rem) % _BASE
+    return (s2 << 16) | s1

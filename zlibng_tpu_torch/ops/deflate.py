@@ -83,16 +83,16 @@ HDR_OUT = 512            # header pack bucket (worst dynamic header < 440 B)
 _INF = 1 << 29
 
 
-def _device(device) -> torch.device:
-    """The device a compress call runs on; a CUDA request without a card
-    raises (the path never carries on on the CPU)."""
+def _device(device, who: str = "compress_cuda") -> torch.device:
+    """The device an entry point `who` runs on; a CUDA request without a
+    card raises (no path carries on on the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("compress_cuda: device 'cuda' requested but "
+            raise RuntimeError(f"{who}: device 'cuda' requested but "
                                "torch.cuda.is_available() is False")
     elif dev.type != "cpu":
-        raise ValueError(f"compress_cuda: unsupported device {dev}")
+        raise ValueError(f"{who}: unsupported device {dev}")
     return dev
 
 
