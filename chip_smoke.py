@@ -9,8 +9,9 @@ quick path (L1, and Z_FIXED at L6), on a seeded corpus of at least 8 MiB.
 Each stream must decode with zlib, equal the port's CPU output (on a 1 MiB
 prefix and on the whole corpus) and the JAX reference's pinned digest
 (`STREAMS`), and the run must go through both kernels. Then a tuned chain
-of 128 (the deep probes) on one 2 MiB lane group, held to the reference's
-digest too (`DEEP_STREAM`), and the host encoder's
+of 128 (the deep probes, inside K1's one launch per lane group) on one
+2 MiB lane group, held to the reference's digest too (`DEEP_STREAM`), and
+the host encoder's
 inputs (level 0, tiny inputs), which must launch no kernel. Then decode:
 decompress_indexed_cuda on the whole corpus (stdlib zlib L6 with a full
 flush every 1 MiB: on the device path, one K2 launch per phase A
@@ -20,11 +21,16 @@ gives up to the host's serial decoder (a block longer than the largest
 lane), framings and options and corrupt streams on a 64 KiB prefix (each
 on its asserted route, against zlib and the CPU port), and the device
 checksums.
-Then it holds each kernel (K1 probe sweep, K2 parse walk) against its
-plain PyTorch version at the main path's shapes (K2 also on raw steps, on
+Then it holds each kernel (K1 probe walk, K2 parse walk) against its
+plain PyTorch version at the main path's shapes (K1 at dense 16, 64 and 2
+and at the chain-128 tune, where it also takes the deep probes, and on
+adversarial lanes: zeros, random bytes, periodic text, two symbols and
+same-hash runs around its halo, with every history bound, encode range
+and chain of WALK_CASES; K2 also on raw steps, on
 step arrays that defeat its speculation or test its step arithmetic, on
 edge bounds, and on decode phase A's bit steps at 16 lanes of 1,048,576
-bits), and last runs torch.profiler: K2's device time by phase, the deep
+bits), and last runs torch.profiler: K1's device time per operating
+point (one kernel per call), K2's device time by phase, the plain deep
 probes' launches, one lane group at L6, L1 and Z_FIXED (with stage 1's
 share of its launches, counted in the same session), and one warm indexed
 decode (device events, idle share, top kernels). Prints
@@ -55,9 +61,10 @@ CORPUS_MIB = 8.5
 # and int32 issue = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations of one (row, k) probe in K1: 4 xors, 4 byte-ctz (test,
-# ffs, shift), 3 selects, hash compare, distance, 3 range tests, score,
-# best compare/update (the count csrc/probe.cu's note works from)
+# int32 operations of one (row, k) probe of a dense sweep that probes every
+# row `dense` times (K1's first design): 4 xors, 4 byte-ctz (test, ffs,
+# shift), 3 selects, hash compare, distance, 3 range tests, score, best
+# compare/update. Printed beside K1's byte bound, as that design's cost
 PROBE_OPS = 32
 # operations of one K2 stop: store, load, max, add, compare
 PARSE_OPS = 5
@@ -132,6 +139,101 @@ def corpus(seed: int = SEED, mib: float = CORPUS_MIB) -> tuple[bytes, list]:
     return b"".join(p for _, p in parts), [(k, len(p)) for k, p in parts]
 
 
+# K1's walk cases, (dense, chain, good_l16, max_dist): each runs every lane
+# of walk_lanes at once (tests/test_torch_probe_walk.py runs them too)
+WALK_CASES = {
+    "dense 2 (L1)": (2, 2, 8, 32768),
+    "dense 16 (L6)": (16, 16, 12, 32768),
+    "dense 64 (L9)": (64, 64, 12, 32768),
+    "chain 65": (64, 65, 12, 32768),
+    "chain 128": (64, 128, 12, 32768),
+    "chain 128, windowBits 9": (64, 128, 12, 512),
+    "chain 1024, good 16": (64, 1024, 16, 32768),
+    "chain 2048, good 4": (64, 2048, 4, 32768),
+}
+# a short K1 halo (ops/probe.py:HALO stages up to 1024 rows), with which
+# the checks also run chains beyond it, so that deep probes take the
+# kernel's global-memory path
+SHORT_HALO = 64
+# same-hash run lengths of the "halo runs" lane: the short halo and one and
+# two rows more, so that the deepest row of the last walks past it
+HALO_RUNS = (SHORT_HALO, SHORT_HALO + 1, SHORT_HALO + 2)
+
+
+def _hashes(lane: np.ndarray) -> np.ndarray:
+    """The 16-bit hash of the 4-byte word at every offset of `lane` (the
+    last three read zero padding), as ops/lz77.py computes it."""
+    from zlibng_tpu_torch.lz77.engine import HASH_MULT
+    d = np.concatenate([lane, np.zeros(3, np.uint8)]).astype(np.uint64)
+    w = d[:-3] | (d[1:-2] << 8) | (d[2:-1] << 16) | (d[3:] << 24)
+    return ((w * np.uint64(HASH_MULT)) & np.uint64(0xFFFFFFFF)) >> 16
+
+
+def _halo_runs_lane(n: int) -> np.ndarray:
+    """Zeros but for its last few KiB: one 4-byte token per run length of
+    HALO_RUNS, each token repeated that many times, 12 bytes apart, and
+    followed each time by 8 random bytes, so that its rows neither saturate
+    nor stop early: the token's same-hash run is exactly that long (tokens
+    are drawn until no other word of the lane shares a token's hash). The
+    tokens lie in the lane's payload, in one window."""
+    gap = 12
+    for attempt in range(64):
+        r = _rand64(SEED, 8 + attempt, n + 4)
+        lane = np.zeros(n, np.uint8)
+        tokens = []
+        at = n - 16 - gap * sum(HALO_RUNS)
+        for i, count in enumerate(HALO_RUNS):
+            tok = r[n + i].astype(np.uint32) | np.uint32(0x01010101)
+            tokens.append(np.array([tok], "<u4").view(np.uint8))
+            for _ in range(count):
+                lane[at: at + 4] = tokens[-1]
+                lane[at + 4: at + 12] = (r[at: at + 8]
+                                         & np.uint64(0xFF)).astype(np.uint8)
+                at += gap
+        h = _hashes(lane)
+        hs = _hashes(np.concatenate(tokens))[[0, 4, 8]]
+        if all(int((h == v).sum()) == c for v, c in zip(hs, HALO_RUNS)):
+            return lane
+    raise AssertionError("no token set gives exact halo runs")
+
+
+def walk_lanes(n: int) -> dict:
+    """K1's adversarial lanes of n bytes: name -> (n,) uint8."""
+    r = _rand64(SEED, 7, n)
+    return {
+        "zeros": np.zeros(n, np.uint8),            # one run, saturates at k=1
+        "uniform random": (r & np.uint64(0xFF)).astype(np.uint8),
+        "period 3": np.resize(np.frombuffer(b"the", np.uint8), n),
+        "period 4": np.resize(np.frombuffer(b"abc ", np.uint8), n),
+        # two symbols: runs far past any chain, probes that stay short
+        "two symbols": (97 + (r >> np.uint64(60)) % np.uint64(2)).astype(
+            np.uint8),
+        "halo runs": _halo_runs_lane(n),
+    }
+
+
+def walk_inputs(n: int, hist: int, case: int, dev,
+                extra: dict | None = None) -> tuple:
+    """K1's inputs for every lane of walk_lanes(n) and of `extra` (name ->
+    (n,) uint8), sorted by sorted_probe_rows: (names, w2_s, h_s, pos_s, hv,
+    enc_end). Lane i gets hist_valid_from 0, `hist` or hist // 2 and
+    enc_end n, n - 333 or the payload's middle, turning with `case` so that
+    every lane meets every value over three cases."""
+    from zlibng_tpu_torch.ops import lz77
+    lanes = dict(walk_lanes(n), **(extra or {}))
+    names = list(lanes)
+    data = torch.from_numpy(np.stack([lanes[k] for k in names])).to(dev)
+    B = data.shape[0]
+    pad = torch.cat([data, data.new_zeros((B, 16))], 1)
+    w2_s, h_s, pos_s, _ = lz77.sorted_probe_rows(lz77._build_w4(pad), n)
+    hvs, ends = (0, hist, hist // 2), (n, n - 333, (n + hist) // 2)
+    hv = torch.tensor([hvs[(i + case) % 3] for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    enc_end = torch.tensor([ends[(i + 2 * case) % 3] for i in range(B)],
+                           dtype=torch.int32, device=dev)
+    return names, w2_s, h_s, pos_s, hv, enc_end
+
+
 def timed(fn, reps: int) -> float:
     """Median milliseconds of fn() over reps warm runs (CUDA events)."""
     fn()
@@ -164,61 +266,167 @@ def first_group_lanes(data: bytes, dev) -> torch.Tensor:
     return torch.from_numpy(lanes).to(dev)
 
 
-def check_k1(lanes: torch.Tensor, rows: list) -> tuple:
-    """K1 against its plain version at L6's, L9's and L1's operating
-    points (dense 16, 64 and 2); returns its inputs for the deep probes."""
-    from zlibng_tpu_torch.ops import lz77, probe
+def walk_probe_bound(h_s: torch.Tensor, chain: int) -> int:
+    """The most probes K1's walk can make over (B, n) (hash, pos)-sorted
+    rows: each row's offset in its same-hash run plus the probe that meets
+    the run's start, at most `chain` and the rows before it."""
+    B, n = h_s.shape
+    r = torch.arange(n, device=h_s.device).expand(B, n)
+    start = torch.ones((B, n), dtype=torch.bool, device=h_s.device)
+    start[:, 1:] = h_s[:, 1:] != h_s[:, :-1]
+    off = r - torch.where(start, r, 0).cummax(1).values
+    return int(torch.minimum((off + 1).clamp(max=chain), r).sum())
+
+
+def _k1_bytes(B: int, N: int, W: int, deep: bool) -> int:
+    """K1's traffic: each row's W + 2 int32 planes read once and its two
+    int32 results written once, plus hist_valid_from (and enc_end)."""
+    return B * N * ((W + 2) * 4 + 8) + 4 * B * (2 if deep else 1)
+
+
+def k1_points() -> list:
+    """K1's operating points on the main path: (name, level or None,
+    chain, good) for L6, L9, L1 and the deep-probe phase's tune."""
     from zlibng_tpu_torch.stream.deflate import LEVELS
+    return [(f"dense {LEVELS[lv].chain} (L{lv})", lv, LEVELS[lv].chain,
+             LEVELS[lv].good) for lv in (6, 9, 1)] + [
+        (f"chain {DEEP_TUNE['chain']} (tune)", None, DEEP_TUNE["chain"],
+         DEEP_TUNE["good"])]
+
+
+def check_k1(lanes: torch.Tensor, rows: list) -> tuple:
+    """K1 against its plain version (the dense sweep, then the deep probes)
+    at L6's, L9's and L1's operating points (dense 16, 64 and 2) and at the
+    deep-probe phase's tune (chain 128: 64 dense and 64 deep probes in one
+    launch), with both times, the byte bound and the probes each makes;
+    then the chain-128 walk with a halo of 64 rows (its deep probes read
+    global memory) against the default halo.
+    Returns its inputs for the later phases."""
+    from zlibng_tpu_torch.ops import lz77, probe
+    from zlibng_tpu_torch.ops.deflate import LANE_HIST
     B, N = lanes.shape
     pad = torch.cat([lanes, lanes.new_zeros((B, 16))], 1)
     w2_s, h_s, pos_s, _ = lz77.sorted_probe_rows(lz77._build_w4(pad), N)
     hv = torch.zeros(B, dtype=torch.int32, device=lanes.device)
-    hv[0] = 32768
+    hv[0] = LANE_HIST
+    enc_end = torch.full((B,), N, dtype=torch.int32, device=lanes.device)
     W = w2_s.shape[2]
-    for lv in (6, 9, 1):
-        dense, good = LEVELS[lv].chain, max(4, min(LEVELS[lv].good, 16))
-        args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH, good, 32768)
-        ks, kc = probe.probe_best(*args)
-        ps, pc = probe._probe_best_plain(*args)
+    for name, lv, chain, good in k1_points():
+        dense = min(chain, lz77.DENSE_PROBES)
+        args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH,
+                max(4, min(good, 16)), 32768)
+        tail = (chain, LANE_HIST, enc_end)
+        ks, kc = probe.probe_best(*args, chain=chain, enc_start=LANE_HIST,
+                                  enc_end=enc_end)
+        lz77.deep_stats.update(rows=0, chunks=0)
+        ps, pc = probe._probe_plain(*args, *tail)
         torch.cuda.synchronize()
+        needy = lz77.deep_stats["rows"]
         err = max(int((ks.long() - ps.long()).abs().max()),
                   int((kc.long() - pc.long()).abs().max()))
         if err != 0:
-            raise AssertionError(f"K1 dense={dense}: kernel != plain "
-                                 f"(max abs err {err})")
-        ms = timed(lambda: probe.probe_best(*args), 20)
-        plain_ms = timed(lambda: probe._probe_best_plain(*args), 3)
-        b_ms, by = bound(B * N * ((W + 2) * 4 + 8) + 4 * B,
-                         B * N * dense * PROBE_OPS)
-        print(f"K1 probe_best B={B} N={N} W={W} dense={dense} (L{lv}): "
-              f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({by})", flush=True)
-        rows.append(dict(level=lv, dense=dense, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by))
-    return w2_s, h_s, pos_s, hv
+            raise AssertionError(f"K1 {name}: kernel != plain (max abs err "
+                                 f"{err}, {int((ks != ps).sum())} scores "
+                                 f"differ)")
+        ms = timed(lambda: probe.probe_best(*args, chain=chain,
+                                            enc_start=LANE_HIST,
+                                            enc_end=enc_end), 20)
+        plain_ms = timed(lambda: probe._probe_plain(*args, *tail), 3)
+        b_ms, by = bound(_k1_bytes(B, N, W, chain > dense), 0)
+        swept = B * N * dense + needy * (chain - dense)
+        walk = walk_probe_bound(h_s, chain)
+        old_ops_ms = B * N * dense * PROBE_OPS / INT32_OPS_PER_S * 1e3
+        print(f"K1 probe_best B={B} N={N} W={W} {name}: equal to plain; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, byte bound "
+              f"{b_ms:.4f} ms ({b_ms / ms:.1%} of it reached); probes: plain "
+              f"sweep {swept} ({needy} needy rows x {chain - dense} deep), "
+              f"walk at most {walk}; the dense sweep's {PROBE_OPS} ops per "
+              f"probe would take {old_ops_ms:.4f} ms", flush=True)
+        rows.append(dict(name=name, level=lv, dense=dense, chain=chain,
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=by, plain_probes=swept,
+                         needy=needy, walk_bound=walk,
+                         run=lambda a=args, c=chain: probe.probe_best(
+                             *a, chain=c, enc_start=LANE_HIST,
+                             enc_end=enc_end)))
+    # the halo: rows staged in shared memory; deeper probes read L2
+    dense, chain = lz77.DENSE_PROBES, DEEP_TUNE["chain"]
+    args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH,
+            max(4, min(DEEP_TUNE["good"], 16)), 32768, chain, LANE_HIST,
+            enc_end)
+    want = probe._probe_plain(*args)
+    for halo in (SHORT_HALO, probe.HALO):
+        got = probe._probe_best_cuda(*args, halo=halo)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K1 chain {chain}, halo {halo}: kernel != "
+                                 "plain")
+        ms = timed(lambda: probe._probe_best_cuda(*args, halo=halo), 20)
+        print(f"K1 chain {chain} with a halo of {halo} rows: equal to plain; "
+              f"kernel {ms:.4f} ms", flush=True)
+    return w2_s, h_s, pos_s, hv, enc_end
+
+
+def check_k1_walk() -> None:
+    """K1 against its plain version on the adversarial lanes of walk_lanes
+    at the main path's lane size, each through sorted_probe_rows: every
+    case of WALK_CASES, with hist_valid_from and enc_end turned three
+    times, and chains beyond SHORT_HALO with that halo too (the deep probes
+    from global memory). Any difference fails; prints each case's kernel
+    time (median of 5, default halo) and its walk's probe bound."""
+    from zlibng_tpu_torch.ops import lz77, probe
+    from zlibng_tpu_torch.ops.deflate import LANE_BLOCKS, LANE_HIST
+    n = LANE_HIST + LANE_BLOCKS[-1]
+    dev = torch.device("cuda")
+    for turn in range(3):
+        names, *ins = walk_inputs(n, LANE_HIST, turn, dev)
+        w2_s, h_s, pos_s, hv, enc_end = ins
+        for case, (dense, chain, good, max_dist) in WALK_CASES.items():
+            args = (w2_s, h_s, pos_s, hv, dense, lz77.GATE_DEPTH, good,
+                    max_dist)
+            kw = dict(chain=chain, enc_start=LANE_HIST, enc_end=enc_end)
+            ps, pc = probe._probe_plain(*args, chain, LANE_HIST, enc_end)
+            halos = (probe.HALO, SHORT_HALO) if chain > SHORT_HALO else (
+                probe.HALO,)
+            for halo in halos:
+                ks, kc = probe._probe_best_cuda(*args, chain, LANE_HIST,
+                                                enc_end, halo=halo)
+                torch.cuda.synchronize()
+                bad = [names[i] for i in range(len(names))
+                       if not (torch.equal(ks[i], ps[i])
+                               and torch.equal(kc[i], pc[i]))]
+                if bad:
+                    raise AssertionError(f"K1 walk {case}, turn {turn}, halo "
+                                         f"{halo}: kernel != plain on lanes "
+                                         f"{bad}")
+            ms = timed(lambda: probe.probe_best(*args, **kw), 5)
+            print(f"K1 walk {case}, turn {turn} (hist_valid_from "
+                  f"{hv.tolist()}, enc_end {enc_end.tolist()}): equal to "
+                  f"plain on {len(names)} lanes of {n} B ({', '.join(names)}"
+                  f"); kernel {ms:.4f} ms; walk at most "
+                  f"{walk_probe_bound(h_s, chain)} probes", flush=True)
 
 
 def time_deep_probes(k1_inputs: tuple) -> dict:
-    """The deep probes of the deep-probe phase's tune on the first lane
-    group, after K1's 64 dense probes: needy rows, chunks and ms per call
-    between CUDA events (plain PyTorch: no kernel of their own yet)."""
+    """The plain deep probes of the deep-probe phase's tune on the first
+    lane group, after K1's 64 dense probes (the second half of K1's plain
+    version, which the walk takes over on the card): needy rows, chunks
+    and ms per call between CUDA events."""
     from zlibng_tpu_torch.ops import lz77, probe
     from zlibng_tpu_torch.ops.deflate import LANE_HIST
-    w2_s, h_s, pos_s, hv = k1_inputs
+    w2_s, h_s, pos_s, hv, enc_end = k1_inputs
     B, N = h_s.shape
     good = DEEP_TUNE["good"]
     score, cand = probe.probe_best(w2_s, h_s, pos_s, hv, lz77.DENSE_PROBES,
                                    lz77.GATE_DEPTH, good, 32768)
-    enc_end = torch.full((B, 1), N, dtype=torch.int32, device=h_s.device)
     args = (w2_s, h_s, pos_s, hv)
-    tail = (LANE_HIST, enc_end, lz77.DENSE_PROBES, DEEP_TUNE["chain"],
-            good, 32768)
+    tail = (LANE_HIST, enc_end.reshape(B, 1), lz77.DENSE_PROBES,
+            DEEP_TUNE["chain"], good, 32768)
     lz77.deep_stats.update(rows=0, chunks=0)
     lz77.deep_probes(*args, score.clone(), cand.clone(), *tail)
     stats = dict(lz77.deep_stats)
     ms = timed(lambda: lz77.deep_probes(*args, score.clone(), cand.clone(),
                                         *tail), 5)
-    print(f"deep probes (chain {DEEP_TUNE['chain']}) on the first group "
+    print(f"plain deep probes (chain {DEEP_TUNE['chain']}) on the first group "
           f"B={B} N={N}: {stats['rows']} needy rows x {stats['k_steps']} "
           f"probes in {stats['chunks']} chunks; {ms:.4f} ms per call",
           flush=True)
@@ -487,37 +695,53 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
 def deep_path(data: bytes) -> dict:
     """compress_cuda with a chain-128 tune on the corpus's first 2 MiB
     (one full-width lane group), against the reference's pinned digest
-    and the CPU port."""
+    and the CPU port. On the card K1's walk takes the deep probes: one K1
+    launch per lane group and no call of the plain deep probes."""
     from types import SimpleNamespace
     from zlibng_tpu_torch import compress_cuda
-    from zlibng_tpu_torch.ops import lz77, parse, probe
+    from zlibng_tpu_torch.ops import deflate, lz77, parse, probe
     group = data[: 2 << 20]
+    groups = -(-len(group) // deflate.GROUP_BYTES)
     tune = SimpleNamespace(**DEEP_TUNE)
+    plain_deep = lz77.deep_probes
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(a[0].device.type)
+        return plain_deep(*a, **k)
+
     probe.launches = parse.launches = 0
-    lz77.deep_stats.update(rows=0, chunks=0)
-    t0 = time.perf_counter()
-    out = compress_cuda(group, 6, tune=tune)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
+    lz77.deep_probes = counted
+    try:
+        t0 = time.perf_counter()
+        out = compress_cuda(group, 6, tune=tune)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    finally:
+        lz77.deep_probes = plain_deep
     launches = {"K1": probe.launches, "K2": parse.launches}
-    stats = dict(lz77.deep_stats)
-    if launches["K1"] == 0 or launches["K2"] == 0 or stats["rows"] == 0:
-        raise AssertionError(f"deep probes: missed a kernel or the deep "
-                             f"probes {launches} {stats}")
+    if launches["K1"] != groups or launches["K2"] == 0 or calls:
+        raise AssertionError(f"deep probes: K1 launches {launches['K1']} for "
+                             f"{groups} lane group(s), K2 {launches['K2']}, "
+                             f"plain deep-probe calls {calls}")
     if zlib.decompress(out) != group:
         raise AssertionError("deep probes: zlib round trip failed")
     digest = (len(out), hashlib.sha256(out).hexdigest()[:16])
     if digest != DEEP_STREAM:
         raise AssertionError(f"deep probes: stream {digest} differs from "
                              f"compress_tpu's {DEEP_STREAM}")
+    lz77.deep_stats.update(rows=0, chunks=0)
     if compress_cuda(group, 6, tune=tune, device="cpu") != out:
         raise AssertionError("deep probes: output differs from the CPU port")
+    stats = dict(lz77.deep_stats)
     print(f"deep probes, tune {DEEP_TUNE}, first {len(group)} B: -> "
           f"{len(out)} B (sha256 {digest[1]}, equal to compress_tpu's and "
-          f"to the CPU port), zlib round trip ok; "
-          f"{stats['rows']} needy rows x {stats['k_steps']} probes in "
-          f"{stats['chunks']} chunks; {sec:.3f} s (first call of this "
-          f"tune); launches {launches}", flush=True)
+          f"to the CPU port), zlib round trip ok; on the card K1 took the "
+          f"deep probes: launches {launches} for {groups} lane group(s), no "
+          f"plain deep-probe call; {sec:.3f} s (first call of this tune); "
+          f"the CPU port's plain deep probes: {stats['rows']} needy rows x "
+          f"{stats['k_steps']} probes in {stats['chunks']} chunks",
+          flush=True)
     return launches
 
 
@@ -960,16 +1184,33 @@ def profile_decode(indexed: dict) -> None:
               f"{n[:60]} {t / 1e3:.2f} ms" for t, n in top), flush=True)
 
 
-def profile_deep(deep: dict) -> None:
-    """CUDA kernel launches and device time of one call of the deep
-    probes, from torch.profiler."""
+def profile_k1(rows: list, deep: dict) -> None:
+    """torch.profiler over K1's operating points (device ms per call, and
+    the kernels one call launches: the walk alone, also at chain 128) and
+    over one call of the plain deep probes (its kernels and device time).
+    Sets `device_ms` in the rows: K1's device time per call, or None where
+    the profiler saw nothing."""
+    for row in rows:
+        kern, _, _ = _kernels(row["run"])
+        names = sorted({e.name.split("::")[-1].split("(")[0] for e in kern})
+        if kern and (len(kern) != 1 or "probe_walk" not in kern[0].name):
+            raise AssertionError(f"K1 {row['name']}: one call launched "
+                                 f"{len(kern)} kernels {names}, not the walk "
+                                 "alone")
+        dev = device_ms(row["run"], 20, "probe_walk")
+        row["device_ms"] = sum(dev.values()) if dev else None
+        print(f"K1 {row['name']}: " + (
+            f"device {row['device_ms']:.4f} ms per call, one kernel per call "
+            f"({names[0]})" if dev and kern else "device time not measured"),
+            flush=True)
     kern, _, _ = _kernels(deep["run"])
     if not kern:
-        print("deep probes: device time not measured", flush=True)
+        print("plain deep probes: device time not measured", flush=True)
         return
-    print(f"deep probes: {len(kern)} CUDA kernels per call ({deep['chunks']}"
-          f" chunks), device {sum(e.device_time for e in kern) / 1e3:.4f} "
-          f"ms per call", flush=True)
+    print(f"plain deep probes: {len(kern)} CUDA kernels per call "
+          f"({deep['chunks']} chunks), device "
+          f"{sum(e.device_time for e in kern) / 1e3:.4f} ms per call",
+          flush=True)
 
 
 def phase(name: str, fn, *args):
@@ -1014,7 +1255,7 @@ def main() -> int:
     for lv, st in ((6, 0), (9, 0), (1, 0), (6, 4)):
         runs[lv, st] = phase(f"main path {_name(lv, st)}", main_path, data,
                              lv, st)
-    phase("deep probes", deep_path, data)
+    deep_launches = phase("deep probes", deep_path, data)
     phase("host route", host_route, data)
     # decode: the indexed path at full size first, then single streams,
     # options, errors and the device checksums
@@ -1032,6 +1273,7 @@ def main() -> int:
     lanes = first_group_lanes(data, dev)
     k1, k2 = [], []
     k1_inputs = phase("K1 check", check_k1, lanes, k1)
+    phase("K1 adversarial lanes", check_k1_walk)
     k2_cases = phase("K2 check", check_k2, lanes, k2)
     k2_cases.append(phase("K2 decode check", check_k2_decode,
                           indexed.pop("wave"), k2, indexed["launches"]))
@@ -1041,7 +1283,7 @@ def main() -> int:
     t0 = time.perf_counter()
     profile_k2(k2_cases, k2)
     del k2_cases
-    profile_deep(deep)
+    profile_k1(k1, deep)
     del deep
     for lv, st in ((6, 0), (1, 0), (6, 4)):
         profile_group(data, lv, st)
@@ -1053,13 +1295,16 @@ def main() -> int:
     for row in k1:
         lv = row["level"]
         kernels.append(dict(
-            name=f"K1 probe_best (dense={row['dense']}, L{lv})", route="cuda",
+            name=f"K1 probe_best ({row['name']})", route="cuda",
             source=src + "probe.cu",
             replaces="zlibng_tpu/ops/probe_pallas.py:51",
-            launches=runs[lv, 0]["launches"]["K1"],
+            launches=(runs[lv, 0]["launches"]["K1"] if lv
+                      else deep_launches["K1"]),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=None))
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row.get("device_ms"),
+            plain_probes=row["plain_probes"], walk_bound=row["walk_bound"]))
     for row in k2:
         lv = row.get("level")
         kernels.append(dict(

@@ -106,6 +106,30 @@ def test_probe_kernel_matches_plain_on_card(card, W):
             assert torch.equal(ks, ps) and torch.equal(kc, pc)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense 64 (L9)", "chain 128",
+                                  "chain 128, windowBits 9",
+                                  "chain 1024, good 16"])
+def test_probe_walk_matches_plain_on_card(card, case):
+    """K1's walk, the dense and the deep probes in one launch, against its
+    plain version (the dense sweep, then deep_probes) on chip_smoke.py's
+    adversarial lanes, with every hist_valid_from and enc_end turn."""
+    dense, chain, good, max_dist = chip_smoke.WALK_CASES[case]
+    for turn in range(3):
+        _, *ins = chip_smoke.walk_inputs(20000, 4096, turn, card)
+        args = (*ins[:4], dense, lz77.GATE_DEPTH, good, max_dist, chain,
+                4096, ins[4])
+        n0 = probe.launches
+        ks, kc = probe.probe_best(*args[:8], chain=chain, enc_start=4096,
+                                  enc_end=ins[4])
+        assert probe.launches == n0 + 1
+        ps, pc = probe._probe_plain(*args)
+        assert torch.equal(ks, ps) and torch.equal(kc, pc)
+        # deep probes past a short halo read global memory
+        ks, kc = probe._probe_best_cuda(*args, halo=chip_smoke.SHORT_HALO)
+        assert torch.equal(ks, ps) and torch.equal(kc, pc)
+
+
 def _parse_card_steps(n: int) -> dict:
     """Random literal/match steps and the arrays that defeat the segmented
     walk's speculation or test its step arithmetic, as (8, n) int32."""

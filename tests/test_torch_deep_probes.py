@@ -4,7 +4,9 @@ dense probes) against the JAX package.
 `lz77_lane` must give equal step/take/blen/bdist at chains 65, 128 and 258
 with a `good` gate, a history bound > 0 and per-lane encode ends; and
 `compress_cuda` with a chain-128 tune must give `compress_tpu`'s bytes.
-Tolerance: none.
+`probe_best(..., chain, enc_start, enc_end)`, which on the card takes the
+dense and the deep probes in one K1 launch, must equal on the CPU the
+plain sweep followed by `deep_probes` at chains 1 to 1024. Tolerance: none.
 """
 import zlib
 from types import SimpleNamespace
@@ -21,6 +23,7 @@ from zlibng_tpu.ops.deflate_tpu import compress_tpu
 from zlibng_tpu.stream.deflate import LevelConfig
 from zlibng_tpu_torch import compress_cuda
 from zlibng_tpu_torch.ops import lz77 as tlz
+from zlibng_tpu_torch.ops import probe as tprobe
 
 from torch_corpus import sample
 
@@ -101,3 +104,43 @@ def test_compress_with_deep_tune_byte_identical(chain):
         device="cpu")
     assert got == want
     assert zlib.decompress(got) == data
+
+
+@pytest.mark.parametrize("chain", [1, 2, 16, 40, 64, 65, 128, 1024])
+def test_probe_best_with_chain_equals_two_calls(chain):
+    """probe_best(..., chain, enc_start, enc_end) on CPU tensors (one call,
+    as K1 takes the dense and the deep probes in one launch on the card)
+    equals the plain sweep followed by deep_probes."""
+    data = torch.from_numpy(_lanes())
+    pad = torch.cat([data, torch.zeros((3, 16), dtype=torch.uint8)], 1)
+    w2_s, h_s, pos_s, _ = tlz.sorted_probe_rows(tlz._build_w4(pad), N)
+    hv, enc_end = torch.from_numpy(HV), torch.from_numpy(ENC_END)
+    dense, good = min(chain, tlz.DENSE_PROBES), 12
+    want_s, want_c = tprobe._probe_best_plain(w2_s, h_s, pos_s, hv, dense,
+                                              tlz.GATE_DEPTH, good)
+    if chain > dense:
+        tlz.deep_probes(w2_s, h_s, pos_s, hv, want_s, want_c, ENC_START,
+                        enc_end.reshape(-1, 1), dense, chain, good)
+    got_s, got_c = tprobe.probe_best(w2_s, h_s, pos_s, hv, dense,
+                                     tlz.GATE_DEPTH, good, chain=chain,
+                                     enc_start=ENC_START, enc_end=enc_end)
+    assert torch.equal(got_s, want_s) and torch.equal(got_c, want_c)
+    if chain > dense:     # the deep probes moved some row
+        base, _ = tprobe.probe_best(w2_s, h_s, pos_s, hv, dense,
+                                    tlz.GATE_DEPTH, good)
+        assert not torch.equal(got_s, base)
+
+
+def test_probe_best_argument_checks():
+    w = torch.zeros((1, 64, 4), dtype=torch.int32)
+    h = torch.zeros((1, 64), dtype=torch.int32)
+    hv = torch.zeros(1, dtype=torch.int32)
+    end = torch.full((1,), 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="enc_end"):
+        tprobe.probe_best(w, h, h, hv, 64, 16, 12, chain=128)
+    with pytest.raises(ValueError, match="good_l16"):
+        tprobe.probe_best(w, h, h, hv, 64, 16, 20, chain=128, enc_end=end)
+    with pytest.raises(ValueError, match="dense"):
+        tprobe.probe_best(w, h, h, hv, 16, 16, 12, chain=8)
+    s, c = tprobe.probe_best(w, h, h, hv, 0, 16, 12, chain=0)
+    assert (s == tprobe.NEG).all() and (c == 0).all()

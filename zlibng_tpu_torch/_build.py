@@ -27,7 +27,7 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 # C signatures: pointers as c_void_p (a bare int would be cut to 32 bits)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "probe": ("zng_probe_best", [_P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P]),
+    "probe": ("zng_probe_best", [_P] * 7 + [_I] * 10 + [_P]),
     "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
 }
 

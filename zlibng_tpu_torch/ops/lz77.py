@@ -9,7 +9,8 @@ handed to K1 are their int32 bit patterns.
     start ascending), and the probe planes follow it by gather
   * K1 (ops/probe.py) keeps, per sorted row, the best of its `dense`
     nearest same-hash predecessors; for tuned chains beyond 64, the deep
-    probes go on for the rows that still hunt
+    probes go on for the rows that still hunt (in the same K1 launch on
+    the card; `deep_probes` on the CPU)
   * rows whose 16-byte probe matched in full are extended column-wise
   * the dist-1 run prepass, the minimum/too-far filters and the one-step
     lazy rule set each position's step; K2 (ops/parse.py) walks them
@@ -33,8 +34,9 @@ GATE_DEPTH = 16
 _EXT_ROWS = 1 << 16
 # (row, probe) pairs per chunk of the deep probes (bounds memory only)
 _DEEP_PAIRS = 1 << 20
-# work of the deep probes so far (a run resets it): needy rows, probes per
-# row of the last call, chunks
+# work of the plain deep probes so far (a run resets it): needy rows,
+# probes per row of the last call, chunks. CPU tensors only: on the card
+# K1's walk takes the deep probes and counts nothing here
 deep_stats = {"rows": 0, "k_steps": 0, "chunks": 0}
 
 _M32 = 0xFFFFFFFF
@@ -142,11 +144,13 @@ def deep_probes(w2_s, h_sorted, pos_s, hv, best_score, best_cand_s,
                 enc_start: int, enc_end, dense: int, chain: int, good: int,
                 max_dist: int = WINDOW_SIZE) -> None:
     """The compacted deep probes k = dense+1..chain (lz77_jax.py:255-312)
-    after K1's dense sweep, on K1's inputs and its (B, N) results, which
-    they update in place. Only rows that still hunt (best l16 < good),
-    can emit (enc_start <= pos < enc_end (B, 1)) and have a (dense+1)-th
-    same-hash predecessor (same-hash runs are contiguous) are probed.
-    Every probe of a row is scored at once; the best replaces the row's
+    after the plain dense sweep, on K1's inputs and the sweep's (B, N)
+    results, which they update in place: the second half of K1's plain
+    version (`probe.probe_best` on CPU tensors). Only rows that still hunt
+    (best l16 < good), can emit (enc_start <= pos < enc_end (B, 1)) and
+    have a (dense+1)-th same-hash predecessor (same-hash runs are
+    contiguous) are probed. Every probe of a row is scored at once; the
+    best replaces the row's
     best only if strictly greater, as k-by-k strict updates would:
     distinct candidates of a row never tie on a valid score (l16 << 20
     dominates any dist)."""
@@ -224,13 +228,12 @@ def lz77_lane(data: torch.Tensor, enc_start: int, enc_end: torch.Tensor,
         dense = min(chain, DENSE_PROBES)
         good_l16 = max(4, min(good, 4 * PROBE_WORDS))
         hv_b = hist_valid_from.to(I32).contiguous()
+        # dense and deep probes: one K1 launch on the card; on the CPU the
+        # plain sweep, then deep_probes for chains beyond DENSE_PROBES
         best_score, best_cand_s = probe_best(
             w2_s, h_sorted, pos_s, hv_b, dense, GATE_DEPTH, good_l16,
-            max_dist=max_dist)
-        if chain > dense:
-            deep_probes(w2_s, h_sorted, pos_s, hv_b, best_score,
-                        best_cand_s, enc_start, enc_end, dense, chain, good,
-                        max_dist)
+            max_dist=max_dist, chain=chain, enc_start=enc_start,
+            enc_end=enc_end.reshape(B).contiguous())
         # pack (valid, l16, cand) and scatter back to position order
         pos_bits = max(17, (N - 1).bit_length())
         valid_s = best_score > NEG

@@ -1,9 +1,13 @@
-"""K1: the dense probe sweep of the LZ77 match engine.
+"""K1: the probe sweep of the LZ77 match engine.
 
-Counterpart of `zlibng_tpu/ops/probe_pallas.py`. On a CUDA tensor the sweep
-runs in the hand-written kernel `csrc/probe.cu`; on a CPU tensor it runs in
-`_probe_best_plain`, the shifted-compare loop of
-`zlibng_tpu/ops/lz77_jax.py:_probe_best_xla`, batched over lanes.
+Counterpart of `zlibng_tpu/ops/probe_pallas.py` and of the deep probes
+around it (`zlibng_tpu/ops/lz77_jax.py:255-312`). On a CUDA tensor the
+dense and the deep probes run in one launch of the hand-written kernel
+`csrc/probe.cu`, a walk per sorted row that stops where no later probe can
+win; on a CPU tensor they run in the plain version: `_probe_best_plain`,
+the shifted-compare loop of `lz77_jax.py:_probe_best_xla` batched over
+lanes, then `lz77.deep_probes`. `tests/test_torch_probe_walk.py` holds a
+model of the walk against both.
 """
 from __future__ import annotations
 
@@ -16,6 +20,11 @@ NEG = -(1 << 30)
 
 # kernel launches so far (a run resets it to show which path it took)
 launches = 0
+# look-behind rows K1 stages in shared memory per 256-row tile (capped at
+# the chain): chains up to HALO walk in shared memory alone; deeper probes
+# read global memory
+HALO = 1024
+_fn = None
 
 
 def _ctz_bytes32(x: torch.Tensor) -> torch.Tensor:
@@ -67,38 +76,88 @@ def _probe_best_plain(w2_s, h_sorted, pos_s, hist_valid_from, dense: int,
 
 
 def _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from, dense, gate_depth,
-                     good_l16, max_dist):
-    global launches
+                     good_l16, max_dist, chain, enc_start, enc_end,
+                     halo=HALO):
+    global launches, _fn
     B, N, W = w2_s.shape
-    for t in (w2_s, h_sorted, pos_s, hist_valid_from):
-        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError(
-                "probe kernel takes contiguous int32 CUDA tensors")
+    dev = w2_s.device
+    i32 = torch.int32
+    if not (w2_s.dtype == h_sorted.dtype == pos_s.dtype
+            == hist_valid_from.dtype == i32
+            and h_sorted.device == pos_s.device == hist_valid_from.device
+            == dev and w2_s.is_contiguous() and h_sorted.is_contiguous()
+            and pos_s.is_contiguous() and hist_valid_from.is_contiguous()):
+        raise ValueError("probe kernel takes contiguous int32 CUDA tensors "
+                         "on one device")
     if h_sorted.shape != (B, N) or pos_s.shape != (B, N) \
-            or hist_valid_from.shape != (B,) or W not in (2, 4) \
-            or not 1 <= dense <= 64:
-        raise ValueError("probe kernel: bad shapes or dense")
-    fn = _build.kernel("probe")
-    score = torch.empty((B, N), dtype=torch.int32, device=w2_s.device)
-    cand = torch.empty_like(score)
-    with torch.cuda.device(w2_s.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(w2_s.data_ptr(), h_sorted.data_ptr(), pos_s.data_ptr(),
-                 hist_valid_from.data_ptr(), score.data_ptr(), cand.data_ptr(),
-                 B, N, W, dense, gate_depth, good_l16, max_dist, stream)
+            or hist_valid_from.shape != (B,) or W not in (2, 4):
+        raise ValueError("probe kernel: bad shapes")
+    ee = 0
+    if chain > dense:
+        if not (enc_end.dtype == i32 and enc_end.device == dev
+                and enc_end.shape == (B,) and enc_end.is_contiguous()):
+            raise ValueError("probe kernel: enc_end must be a contiguous "
+                             "(B,) int32 tensor on the probe's device")
+        ee = enc_end.data_ptr()
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from,
+                                    dense, gate_depth, good_l16, max_dist,
+                                    chain, enc_start, enc_end, halo)
+    if _fn is None:
+        _fn = _build.kernel("probe")
+    # one allocation for both results; the raw stream handle skips the
+    # Stream object (at dense 2 this host work is as long as the kernel)
+    out = torch.empty((2, B, N), dtype=i32, device=dev)
+    base = out.data_ptr()
+    err = _fn(w2_s.data_ptr(), h_sorted.data_ptr(), pos_s.data_ptr(),
+              hist_valid_from.data_ptr(), ee, base, base + 4 * B * N, B, N, W,
+              halo, dense, chain, gate_depth, good_l16, max_dist, enc_start,
+              torch._C._cuda_getCurrentRawStream(dev.index))
     _build.check(err, "probe kernel")
     launches += 1
-    return score, cand
+    return out.unbind(0)
 
 
 def probe_best(w2_s, h_sorted, pos_s, hist_valid_from, dense: int,
-               gate_depth: int, good_l16: int, max_dist: int = WINDOW_SIZE):
-    """Dense probe sweep over B lanes: the K1 kernel for CUDA tensors, the
-    plain version for CPU tensors. Shapes as in _probe_best_plain."""
+               gate_depth: int, good_l16: int, max_dist: int = WINDOW_SIZE,
+               chain: int | None = None, enc_start: int = 0, enc_end=None):
+    """Probe sweep over B lanes: the dense probes k = 1..dense and, for
+    chain > dense, the deep probes k = dense+1..chain of the rows that
+    still hunt and can emit (enc_start <= pos < enc_end (B,) int32). A CUDA
+    tensor runs the K1 walk, one launch; a CPU tensor the plain version,
+    `_probe_best_plain` then `lz77.deep_probes`. Shapes as in
+    _probe_best_plain. Rows must be sorted by (hash, pos), as
+    lz77.sorted_probe_rows gives them: the walk's early exits rely on it.
+    Past dense, the deep gate tests best l16 < good_l16, which must lie in
+    [4, 16] there (deep_probes' max(4, min(good, 16)) of the same value)."""
+    chain = dense if chain is None else chain
+    if not 0 <= dense <= chain or (dense == 0 and chain > 0):
+        raise ValueError(f"probe_best: need 1 <= dense <= chain (or both 0),"
+                         f" got dense {dense}, chain {chain}")
+    if chain > dense and (enc_end is None or not 4 <= good_l16 <= 16):
+        raise ValueError("probe_best: the deep probes need enc_end and "
+                         "4 <= good_l16 <= 16")
     if w2_s.is_cuda:
         return _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from, dense,
-                                gate_depth, good_l16, max_dist)
+                                gate_depth, good_l16, max_dist, chain,
+                                enc_start, enc_end)
     if w2_s.device.type != "cpu":
         raise ValueError(f"probe_best: unsupported device {w2_s.device}")
-    return _probe_best_plain(w2_s, h_sorted, pos_s, hist_valid_from, dense,
-                             gate_depth, good_l16, max_dist)
+    return _probe_plain(w2_s, h_sorted, pos_s, hist_valid_from, dense,
+                        gate_depth, good_l16, max_dist, chain, enc_start,
+                        enc_end)
+
+
+def _probe_plain(w2_s, h_sorted, pos_s, hist_valid_from, dense, gate_depth,
+                 good_l16, max_dist, chain, enc_start, enc_end):
+    """K1's plain version on tensors of any device: `_probe_best_plain`,
+    then `lz77.deep_probes` for chain > dense."""
+    score, cand = _probe_best_plain(w2_s, h_sorted, pos_s, hist_valid_from,
+                                    dense, gate_depth, good_l16, max_dist)
+    if chain > dense:
+        from .lz77 import deep_probes     # lz77 imports this module
+        deep_probes(w2_s, h_sorted, pos_s, hist_valid_from, score, cand,
+                    enc_start, enc_end.reshape(-1, 1), dense, chain, good_l16,
+                    max_dist)
+    return score, cand
