@@ -20,7 +20,17 @@ zlib's L6 stream on the card, and of the port's L6 stream, which phase A
 gives up to the host's serial decoder (a block longer than the largest
 lane), framings and options and corrupt streams on a 64 KiB prefix (each
 on its asserted route, against zlib and the CPU port), and the device
-checksums.
+checksums. Then the host C runtime (built with the system compiler; it
+must build): gzip framing of the whole corpus by compress_cuda and its
+decode against zlib, and the host CRC-32 and serial decoder timed on their
+C and numpy routes. Then the sharded paths at lane_block 65,536 with one
+shard and with 8 shards on the card: compress_multichip on the whole
+corpus (zlib round trip, K1 and K2 counted by the wrappers and by the
+profiler, equal to the CPU port's sharded run on a 1 MiB prefix),
+decompress_segments_multichip of the indexed blob (equal to
+decompress_segments_cuda, and a corrupt blob raising the reference's
+text), and parallel.multihost over NCCL at world size 1 (the box has one
+card).
 Then it holds each kernel (K1 probe walk, K2 parse walk) against its
 plain PyTorch version at the main path's shapes (K1 at dense 16, 64 and 2
 and at the chain-128 tune, where it also takes the deep probes, and on
@@ -990,8 +1000,9 @@ def decode_options(data: bytes) -> None:
     if r["out"] != small or _route(r) != "host" or r["k2"]:
         raise AssertionError(f"decode, host engine: {r['stats']}, "
                              f"K2 {r['k2']}")
-    print(f"decode, host engine (64 KiB, the port's numpy serial "
-          f"decoder): equal; no kernel launched; {r['s']:.3f} s", flush=True)
+    print(f"decode, host engine (64 KiB, the serial decoder's C route, "
+          f"{type(r['out']).__name__}): equal; no kernel launched; "
+          f"{r['s']:.3f} s", flush=True)
 
 
 # corrupt streams of decode_errors: what each must raise, and the cause
@@ -1079,6 +1090,297 @@ def checksums(data: bytes) -> None:
               f"(also seeded); cold {cold * 1e3:.2f} ms, warm "
               f"{statistics.median(warm) * 1e3:.2f} ms; zlib on the host "
               f"{host * 1e3:.2f} ms", flush=True)
+
+
+def native_runtime(data: bytes, l6_stream: bytes) -> None:
+    """The host runtime (native/zng_host.c) on the whole corpus: gzip
+    framing of compress_cuda (its CRC-32 in C), the decode of that stream
+    (over 1 MiB: the host engine, the C serial decoder and CRC-32) against
+    zlib, and, timed, the host CRC-32 and the serial decoder on the port's
+    L6 stream (the stream the card's phase A gives up), each on its C and
+    its numpy route (the numpy CRC-32 on a 1 MiB prefix only)."""
+    from zlibng_tpu_torch import compress_cuda, decompress_cuda, native
+    from zlibng_tpu_torch.checksum.crc32 import crc32
+    from zlibng_tpu_torch.stream import inflate_serial
+    if not native.available():
+        raise AssertionError("native host runtime did not build")
+    t0 = time.perf_counter()
+    gz = compress_cuda(data, 6, wbits=31)
+    torch.cuda.synchronize()
+    gz_s = time.perf_counter() - t0
+    if zlib.decompress(gz, 31) != data or gzip.decompress(gz) != data:
+        raise AssertionError("gzip framing: stdlib round trip failed")
+    if gz[10:-8] != l6_stream[2:-4]:
+        raise AssertionError("gzip framing: payload differs from the zlib "
+                             "stream's at L6")
+    t0 = time.perf_counter()
+    out = decompress_cuda(gz, wbits=31)
+    dec_s = time.perf_counter() - t0
+    if out != data:
+        raise AssertionError("gzip decode: output differs from the corpus")
+    print(f"native: gzip compress_cuda(wbits=31) of {len(data)} B -> "
+          f"{len(gz)} B in {gz_s:.3f} s (cold) = "
+          f"{len(data) / gz_s / 1e6:.3f} MB/s, payload equal to the L6 zlib "
+          f"stream's; zlib and gzip round trips ok; decompress_cuda(wbits=31)"
+          f" (host engine, {type(out).__name__}) {dec_s:.3f} s = "
+          f"{len(data) / dec_s / 1e6:.3f} MB/s, equal", flush=True)
+
+    def best(fn, reps):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = fn()
+            times.append(time.perf_counter() - t0)
+        return got, min(times), statistics.median(times)
+
+    crc, c_min, c_med = best(lambda: crc32(data), 5)
+    if crc != zlib.crc32(data):
+        raise AssertionError("native crc32 differs from zlib")
+    prefix = data[: 1 << 20]
+    lib = native._lib
+    native._lib = False
+    try:
+        crc_np, n_min, _ = best(lambda: crc32(prefix), 1)
+    finally:
+        native._lib = lib
+    if crc_np != zlib.crc32(prefix):
+        raise AssertionError("numpy crc32 differs from zlib")
+    print(f"native: host crc32 of {len(data)} B in C {c_min * 1e3:.2f} ms "
+          f"(median {c_med * 1e3:.2f} ms of 5) = "
+          f"{len(data) / c_min / 1e6:.1f} MB/s; numpy route {n_min:.3f} s "
+          f"for 1 MiB = {len(prefix) / n_min / 1e6:.3f} MB/s", flush=True)
+    raw = l6_stream[2:-4]
+    (o_c, _), s_min, s_med = best(lambda: inflate_serial.inflate_raw(raw), 3)
+    inflate_serial._native_lib = False
+    try:
+        (o_np, _), p_min, _ = best(lambda: inflate_serial.inflate_raw(raw), 1)
+    finally:
+        inflate_serial._native_lib = None
+    if o_c != data or o_np != data or type(o_c) is not memoryview:
+        raise AssertionError("serial decoder: routes differ from the corpus")
+    print(f"native: serial decoder on the port's L6 stream ({len(raw)} B "
+          f"raw): C route {s_min:.3f} s (median {s_med:.3f} s of 3) = "
+          f"{len(data) / s_min / 1e6:.1f} MB/s out, a memoryview; numpy "
+          f"route {p_min:.3f} s = {len(data) / p_min / 1e6:.3f} MB/s; both "
+          f"equal to the corpus", flush=True)
+
+
+SHARD_LANE_BLOCK = 1 << 16
+# the card every shard of the sharded phases runs on
+CARD = "cuda:0"
+# shard counts of the sharded phases: one shard, and eight on one card
+SHARD_COUNTS = (1, 8)
+# the sharded decode's corrupt blob: the indexed blob with byte 20 of
+# segment 1 xored with 0x55, and the error the reference's
+# decompress_segments_multichip raises for it (test_torch_sharded.py
+# recomputes it)
+SHARDED_CORRUPT = (1, 20, "invalid literal/lengths set")
+
+
+def sharded_compress(data: bytes, rows: list) -> dict:
+    """compress_multichip on the whole corpus at lane_block 65,536 (136
+    lanes) with every shard on the card: one shard, and 8 shards on
+    cuda:0. Each: K1 and K2 launched (wrapper counts), zlib round trip,
+    cold and warm seconds, equal to the port's CPU run with as many shards
+    on the 1 MiB prefix, and a profile of the prefix whose K1 and K2
+    kernels equal the wrapper counts. The 8-shard run keeps one shard's K1
+    and K2 inputs for the kernel checks (`rows`)."""
+    from zlibng_tpu_torch.ops import parse, probe
+    from zlibng_tpu_torch.parallel.sharded import compress_multichip
+    lb = SHARD_LANE_BLOCK
+    prefix = data[: 1 << 20]
+    out = {}
+    for k in SHARD_COUNTS:
+        devs = [CARD] * k
+        kept = {}
+        k1, k2 = probe._probe_best_cuda, parse._parse_select_cuda
+
+        def keep1(*a, **kw):
+            kept.setdefault("K1", a)
+            return k1(*a, **kw)
+
+        def keep2(*a):
+            kept.setdefault("K2", a)
+            return k2(*a)
+
+        probe.launches = parse.launches = 0
+        probe._probe_best_cuda, parse._parse_select_cuda = keep1, keep2
+        try:
+            t0 = time.perf_counter()
+            z = compress_multichip(data, devs, lane_block=lb)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+        finally:
+            probe._probe_best_cuda, parse._parse_select_cuda = k1, k2
+        launches = {"K1": probe.launches, "K2": parse.launches}
+        if launches["K1"] == 0 or launches["K2"] == 0:
+            raise AssertionError(f"sharded x{k}: missed a kernel {launches}")
+        if zlib.decompress(z) != data:
+            raise AssertionError(f"sharded x{k}: zlib round trip failed")
+        t0 = time.perf_counter()
+        if compress_multichip(data, devs, lane_block=lb) != z:
+            raise AssertionError(f"sharded x{k}: warm run differs")
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        card = compress_multichip(prefix, devs, lane_block=lb)
+        t0 = time.perf_counter()
+        cpu = compress_multichip(prefix, ["cpu"] * k, lane_block=lb)
+        cpu_s = time.perf_counter() - t0
+        if card != cpu:
+            raise AssertionError(f"sharded x{k}: 1 MiB prefix differs from "
+                                 "the CPU port")
+        probe.launches = parse.launches = 0
+        dev, _, wall = _kernels(lambda: compress_multichip(prefix, devs,
+                                                           lane_block=lb))
+        counted = {"K1": probe.launches // 2, "K2": parse.launches // 2}
+        seen = {"K1": sum("probe_walk" in e.name for e in dev),
+                "K2": sum("parse_stitch" in e.name for e in dev)}
+        if not dev:
+            raise AssertionError(f"sharded x{k}: the profiler recorded no "
+                                 "device events")
+        if seen["K1"] == 0 or seen["K2"] == 0 or seen != counted:
+            raise AssertionError(f"sharded x{k}: profiler saw {seen}, "
+                                 f"wrappers counted {counted}")
+        nl = -(-len(data) // lb)
+        print(f"sharded compress x{k} shard(s) on {CARD}, lane_block {lb} "
+              f"({nl} lanes, {-(-nl // k)} per shard): {len(data)} B -> "
+              f"{len(z)} B (ratio {len(z) / len(data):.4f}, sha256 "
+              f"{hashlib.sha256(z).hexdigest()[:16]}); zlib round trip ok; "
+              f"launches {launches}; cold {cold:.3f} s, warm {warm:.3f} s = "
+              f"{len(data) / warm / 1e6:.3f} MB/s; 1 MiB prefix equal to the "
+              f"CPU port's x{k} ({cpu_s:.1f} s on the host); profiled prefix"
+              f": {seen['K1']} probe_walk and {seen['K2']} parse stitch "
+              f"kernels = the wrapper counts, wall {wall:.3f} s",
+              flush=True)
+        out[k] = dict(stream=z, launches=launches, warm_s=warm, kept=kept)
+    kept = out[SHARD_COUNTS[-1]].pop("kept")
+    k = SHARD_COUNTS[-1]
+    a = kept["K1"][:11]
+    got = probe._probe_best_cuda(*a)
+    want = probe._probe_plain(*a)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in
+              zip(got, want))
+    if err:
+        raise AssertionError(f"K1 sharded inputs: kernel != plain ({err})")
+    B, N, W = a[0].shape
+    ms = timed(lambda: probe._probe_best_cuda(*a), 20)
+    plain_ms = timed(lambda: probe._probe_plain(*a), 3)
+    b_ms, by = bound(_k1_bytes(B, N, W, a[8] > a[4]), 0)
+    print(f"K1 probe_best on one shard's inputs (x{k}) B={B} N={N} W={W} "
+          f"dense {a[4]}: equal to plain; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, byte bound {b_ms:.4f} ms", flush=True)
+    rows.append(dict(name=f"K1 probe_best (sharded compress, {k} shards, "
+                     f"{B} lanes each)", kernel="K1", max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                     launches=out[k]["launches"]["K1"]))
+    step, bounds = kept["K2"]
+    row = _k2_case(f"sharded compress fused steps ({k} shards)", step,
+                   bounds)
+    rows.append(dict(row, name=f"K2 parse_select (sharded compress, {k} "
+                     f"shards, {step.shape[0]} lanes each)", kernel="K2",
+                     launches=out[k]["launches"]["K2"]))
+    return out
+
+
+def sharded_decode(indexed: dict, rows: list) -> None:
+    """decompress_segments_multichip of the indexed blob (9 segments) with
+    one shard and 8 shards on cuda:0: equal to decompress_segments_cuda's
+    output, on the sharded path (stats mesh_ok, no fallback), K2 launched;
+    then the corrupt blob of SHARDED_CORRUPT raises the reference's text
+    and counts stats["error"]."""
+    from zlibng_tpu_torch.errors import DataError
+    from zlibng_tpu_torch.ops import inflate, parse
+    from zlibng_tpu_torch.ops.inflate import decompress_segments_cuda
+    from zlibng_tpu_torch.parallel.sharded import (
+        decompress_segments_multichip,
+    )
+    blob = indexed["blob"]
+    starts = indexed["idx"].comp_offsets[:-1]
+    want = decompress_segments_cuda(blob, starts)
+    k2, kept = parse._parse_select_cuda, []
+
+    def keep(*a):
+        if not kept:
+            kept.append(a)
+        return k2(*a)
+
+    for k in SHARD_COUNTS:
+        devs = [CARD] * k
+        parse._parse_select_cuda = keep if k == SHARD_COUNTS[-1] else k2
+        try:
+            r = _decode_run(lambda: decompress_segments_multichip(
+                blob, starts, devs))
+        finally:
+            parse._parse_select_cuda = k2
+        launches = r["k2"]
+        if r["out"] != want:
+            raise AssertionError(f"sharded decode x{k}: output differs from "
+                                 f"decompress_segments_cuda's ({r['error']})")
+        if r["stats"]["mesh_ok"] != 1 or r["stats"]["fallback"] or \
+                r["k2"] == 0 or r["k2"] < r["split"]["phase_a"]:
+            raise AssertionError(f"sharded decode x{k}: stats {r['stats']}, "
+                                 f"K2 {r['k2']}")
+        print(f"sharded decode x{k} shard(s) on {CARD}: {len(starts)} "
+              f"segments, equal to decompress_segments_cuda; stats change "
+              f"{r['stats']}; waves {r['split']['waves']}, phase A dispatches"
+              f" {r['split']['phase_a']}, K2 launches {r['k2']}; "
+              f"{r['s']:.3f} s = {len(b''.join(r['out'])) / r['s'] / 1e6:.3f}"
+              f" MB/s out", flush=True)
+    seg, at, text = SHARDED_CORRUPT
+    c = bytearray(blob)
+    c[starts[seg] + at] ^= 0x55
+    r = _decode_run(lambda: decompress_segments_multichip(
+        bytes(c), starts, [CARD] * SHARD_COUNTS[-1]))
+    if r["error"] != text or r["stats"]["error"] != 1 \
+            or r["stats"]["mesh_ok"]:
+        raise AssertionError(f"sharded decode, corrupt: {r['error']!r} "
+                             f"{r['stats']}, want {text!r}")
+    print(f"sharded decode, segment {seg} byte {at} ^ 0x55: raises {text!r}"
+          f" as the reference does; stats change {r['stats']}", flush=True)
+    step, bounds = kept[0]
+    row = _k2_case(f"sharded decode bit-steps ({SHARD_COUNTS[-1]} shards)",
+                   step, bounds)
+    rows.append(dict(row, name=f"K2 parse_select (sharded decode, "
+                     f"{SHARD_COUNTS[-1]} shards, {step.shape[0]} lanes "
+                     f"each)", kernel="K2", launches=launches))
+
+
+def multihost_one_rank(data: bytes, one_shard: bytes, indexed: dict) -> None:
+    """parallel.multihost over torch.distributed with NCCL, in this process
+    as rank 0 of a world of 1 over tcp://127.0.0.1 (the box has one card,
+    so more ranks are checked on the CPU only, by
+    tests/test_torch_multihost.py): the stream must equal the one-shard
+    sharded stream, and the segments decompress_segments_cuda's."""
+    import socket
+    import torch.distributed as dist
+    from zlibng_tpu_torch.ops.inflate import decompress_segments_cuda
+    from zlibng_tpu_torch.parallel.multihost import (
+        multihost_compress, multihost_decompress_segments,
+    )
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        t0 = time.perf_counter()
+        z = multihost_compress(data, lane_block=SHARD_LANE_BLOCK)
+        sec = time.perf_counter() - t0
+        blob = indexed["blob"]
+        starts = indexed["idx"].comp_offsets[:-1]
+        outs = multihost_decompress_segments(blob, starts)
+    finally:
+        dist.destroy_process_group()
+    if z != one_shard:
+        raise AssertionError("multihost: stream differs from the one-shard "
+                             "sharded stream")
+    if outs != decompress_segments_cuda(blob, starts):
+        raise AssertionError("multihost: segments differ")
+    print(f"multihost (NCCL over tcp://127.0.0.1, checked at world size 1 "
+          f"only: one card on this box): stream equal to the one-shard "
+          f"sharded stream, {sec:.3f} s; {len(starts)} segments equal to "
+          f"decompress_segments_cuda's", flush=True)
 
 
 def _kernels(fn) -> tuple[list, list, float]:
@@ -1237,6 +1539,13 @@ def main() -> int:
     each = ", ".join(f"{k} {v:.2f} s" for k, v in took.items())
     print(f"phase build: {time.perf_counter() - t0:.2f} s ({each or 'cached'})",
           flush=True)
+    from zlibng_tpu_torch import native
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native host runtime (native/zng_host.c) "
+                             "did not build")
+    print(f"phase build native host runtime: {time.perf_counter() - t0:.2f}"
+          f" s ({native.library_path().name})", flush=True)
     for name in _build.KERNELS:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.exists():
@@ -1268,6 +1577,12 @@ def main() -> int:
     phase("decode framing and options", decode_options, data)
     phase("decode errors", decode_errors, data)
     phase("device checksums", checksums, data)
+    phase("native host runtime", native_runtime, data, runs[6, 0]["stream"])
+    shard_rows = []
+    sharded = phase("sharded compress", sharded_compress, data, shard_rows)
+    phase("sharded decode", sharded_decode, indexed, shard_rows)
+    phase("multihost, world size 1", multihost_one_rank, data,
+          sharded[1]["stream"], indexed)
 
     dev = torch.device("cuda")
     lanes = first_group_lanes(data, dev)
@@ -1318,6 +1633,16 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
             device_ms=row.get("device_ms")))
+    for row in shard_rows:
+        k1 = row["kernel"] == "K1"
+        kernels.append(dict(
+            name=row["name"], route="cuda",
+            source=src + ("probe.cu" if k1 else "parse.cu"),
+            replaces=("zlibng_tpu/ops/probe_pallas.py:51" if k1 else
+                      "zlibng_tpu/ops/parse_pallas.py:26"),
+            launches=row["launches"], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total: {time.perf_counter() - t_all:.1f} s",
           flush=True)

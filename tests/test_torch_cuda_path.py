@@ -19,10 +19,13 @@ import chip_smoke
 import zlibng_tpu_torch
 from zlibng_tpu_torch import _build, compress_cuda, decompress_cuda
 from zlibng_tpu_torch.errors import DataError, StreamError
-from zlibng_tpu_torch.ops import checksum, inflate, lz77, parse, probe
-from zlibng_tpu_torch.parallel import index
+from zlibng_tpu_torch.ops import (
+    checksum, deflate, inflate, lz77, parse, probe,
+)
+from zlibng_tpu_torch.parallel import index, sharded
 
 from torch_corpus import pigz, sample
+from torch_mh_worker import run_ranks
 
 
 @pytest.fixture
@@ -194,6 +197,131 @@ def test_quick_path_on_card_matches_cpu(card, level, strategy):
     assert probe.launches > n0[0] and parse.launches > n0[1]
     assert got == compress_cuda(data, level, strategy=strategy, device="cpu")
     assert zlib.decompress(got) == data
+
+
+def test_stage_clock_times_the_stream_of_its_card(monkeypatch):
+    """compress_cuda's stage clock records its events on the current stream
+    of the call's card and waits for that card, not the current device."""
+    seen = {"record": [], "sync": []}
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self, stream=None):
+            seen["record"].append(stream)
+
+        def elapsed_time(self, other):
+            return 250.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: ("stream of", device))
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: seen["sync"].append(device))
+    card1 = torch.device("cuda", 1)
+    clock = deflate._StageClock(card1)
+    with clock.stage("stage1"):
+        pass
+    with clock.stage("stitch", on_device=False):
+        pass
+    clock.publish()
+    assert seen["record"] == [("stream of", card1)] * 2
+    assert seen["sync"] == [card1]
+    assert deflate.stage_seconds["stage1"] == 0.25
+
+
+@pytest.mark.gpu
+def test_compress_on_explicit_card_index(card):
+    """device="cuda:0" named explicitly: the stage clock times that card."""
+    data = pigz()[:300000]
+    got = compress_cuda(data, 6, device="cuda:0")
+    assert got == compress_cuda(data, 6, device="cpu")
+    assert deflate.stage_seconds["stage1"] > 0
+    assert deflate.stage_seconds["stage2"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3])
+def test_sharded_compress_on_card_matches_cpu(card, k):
+    """k shards on the card: K1 and K2 launched, the CPU's bytes."""
+    data = pigz()[:300000]
+    n0 = (probe.launches, parse.launches)
+    got = sharded.compress_multichip(data, ["cuda:0"] * k, lane_block=65536)
+    assert probe.launches >= n0[0] + k and parse.launches >= n0[1] + k
+    assert got == sharded.compress_multichip(data, ["cpu"] * k,
+                                             lane_block=65536)
+    assert zlib.decompress(got) == data
+
+
+@pytest.mark.gpu
+def test_sharded_decode_on_card_matches_cpu(card):
+    data = pigz()[:300000]
+    blob, idx = chip_smoke.indexed_blob(data, 65536)
+    starts = idx.comp_offsets[:-1]
+    n0, ok = parse.launches, inflate.stats["mesh_ok"]
+    got = sharded.decompress_segments_multichip(blob, starts, ["cuda:0"] * 2)
+    assert parse.launches > n0 and inflate.stats["mesh_ok"] == ok + 1
+    assert got == inflate.decompress_segments_cuda(blob, starts, device="cpu")
+    assert b"".join(got) == data
+
+
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs 2 or more CUDA cards, found {n}")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_sharded_paths_across_cards(cards):
+    """One shard per card in one process (and devices=None, every card):
+    the CPU's bytes with as many shards, and the CPU's segments."""
+    data = pigz()[:300000]
+    n = len(cards)
+    n0 = (probe.launches, parse.launches)
+    got = sharded.compress_multichip(data, cards, lane_block=65536)
+    assert probe.launches >= n0[0] + n and parse.launches >= n0[1] + n
+    assert got == sharded.compress_multichip(data, lane_block=65536)
+    assert got == sharded.compress_multichip(data, ["cpu"] * n,
+                                             lane_block=65536)
+    blob, idx = chip_smoke.indexed_blob(data, 32768)
+    starts = idx.comp_offsets[:-1]
+    ok = inflate.stats["mesh_ok"]
+    assert sharded.decompress_segments_multichip(blob, starts, cards) \
+        == inflate.decompress_segments_cuda(blob, starts, device="cpu")
+    assert inflate.stats["mesh_ok"] == ok + 1
+
+
+@pytest.mark.gpu
+def test_multihost_nccl_across_cards(cards, tmp_path):
+    """One NCCL rank per card (tests/torch_mh_worker.py): rank 0's stream
+    equals the CPU's with as many shards; every rank decodes the
+    segments on the sharded path."""
+    data = pigz()[:200000] + sample("a256", 50000)
+    n = len(cards)
+    blob, decoded, moves = run_ranks(data, tmp_path, world=n, shards=1,
+                                     lane_block=16384, backend="nccl",
+                                     timeout=120)
+    assert blob == sharded.compress_multichip(data, ["cpu"] * n,
+                                              lane_block=16384)
+    for dec, moved in zip(decoded, moves):
+        assert dec == data
+        assert moved["mesh_ok"] == 1 and moved["fallback"] == 0
+
+
+@pytest.mark.gpu
+def test_native_runtime_and_gzip_on_card(card):
+    """The card's box builds the host runtime; gzip framing and the host
+    engine's decode run there (a memoryview, as in the reference)."""
+    from zlibng_tpu_torch import native
+    assert native.available()
+    data = pigz()[:300000]
+    gz = compress_cuda(data, 6, wbits=31, device=card)
+    assert gzip.decompress(gz) == data
+    out = decompress_cuda(gz, wbits=31, engine="host", device=card)
+    assert isinstance(out, memoryview) and out == data
 
 
 DECODE_ENTRIES = {

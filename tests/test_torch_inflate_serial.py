@@ -247,8 +247,11 @@ def test_stream_error_strings_match_reference():
                               ref_ser._S_HUFF, ref_ser._S_DONE)
 
 
-def test_dynamic_header_lengths_match_reference():
-    """_last_lengths, which the device decoder turns into its tables."""
+def test_dynamic_header_lengths_match_reference(monkeypatch):
+    """_last_lengths, which the device decoder turns into its tables. Its
+    length differs by route (318 on the C route, hlit + hdist on numpy's,
+    in both packages), so the port takes the reference's numpy route."""
+    monkeypatch.setattr(tser, "_native_lib", False)
     raw = STREAMS["L6"][0]
     a, b = tser.RawInflater(), ref_ser.RawInflater()
     for inf in (a, b):
@@ -261,3 +264,28 @@ def test_dynamic_header_lengths_match_reference():
     assert a.bitpos == b.bitpos
     np.testing.assert_array_equal(a.lit_lut, b.lit_lut)
     np.testing.assert_array_equal(a.dist_lut, b.dist_lut)
+
+
+def test_dynamic_header_lengths_match_reference_on_c_route(monkeypatch):
+    """The same header read on the C route of both packages. Its tables
+    fill the first 2^lut_bits entries of scratch buffers left unset past
+    them."""
+    if tser._native() is None:
+        pytest.skip("no C compiler: the C route is not built")
+    monkeypatch.setattr(ref_ser, "_native_lib", None)
+    raw = STREAMS["L6"][0]
+    a, b = tser.RawInflater(), ref_ser.RawInflater()
+    for inf in (a, b):
+        inf.feed(raw)
+        inf._read_block_header(True)
+    la, ha, da = a._last_lengths
+    lb, hb, db = b._last_lengths
+    assert (ha, da) == (hb, db) and len(la) == len(lb)
+    np.testing.assert_array_equal(la, lb)
+    assert a.bitpos == b.bitpos
+    assert a._lut_bits == b._lut_bits
+    lbits, dbits = a._lut_bits
+    np.testing.assert_array_equal(a.lit_lut[:1 << lbits],
+                                  b.lit_lut[:1 << lbits])
+    np.testing.assert_array_equal(a.dist_lut[:1 << dbits],
+                                  b.dist_lut[:1 << dbits])

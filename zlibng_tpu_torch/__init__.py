@@ -18,8 +18,23 @@ decompress_tpu`: zlib/gzip/raw decode with the same output, error text and
 waves), and the device checksums `ops.checksum.adler32_cuda` and
 `crc32_cuda`. Every entry point runs on the card unless given
 device="cpu".
+
+The sharded paths are the counterparts of `zlibng_tpu.parallel.sharded`
+and `zlibng_tpu.parallel.multihost`: `compress_multichip` and
+`decompress_segments_multichip` split lanes and segments across a sequence
+of devices (default: every visible card; ["cpu"] * k runs k shards on the
+CPU, [cuda:0] * k runs k on one card), giving the reference's bytes for the
+same shard count; `parallel.multihost.multihost_compress` and
+`multihost_decompress_segments` run them across the ranks of a
+torch.distributed process group. The host runtime (`native/`, C built at
+first use) carries the checksums, the host Huffman builds and the serial
+decoder, each with a numpy route where no C compiler is found.
 """
 from .ops.deflate import compress_cuda
 from .ops.inflate import decompress_cuda
+from .parallel.sharded import (
+    compress_multichip, decompress_segments_multichip,
+)
 
-__all__ = ["compress_cuda", "decompress_cuda"]
+__all__ = ["compress_cuda", "compress_multichip", "decompress_cuda",
+           "decompress_segments_multichip"]

@@ -1,13 +1,13 @@
-"""Adler-32 checksum, vectorized in numpy (zlib-ng adler32.c semantics).
-
-Per-block (sum, weighted-sum) reductions merged in closed form, and the
-exact combine of two checksums: the numpy path of
-`zlibng_tpu/checksum/adler32.py`.
+"""Adler-32 checksum (zlib-ng adler32.c semantics): the host runtime's C
+route first (`native/zng_host.c`), else per-block (sum, weighted-sum)
+reductions in numpy merged in closed form; and the exact combine of two
+checksums. The routes of `zlibng_tpu/checksum/adler32.py`.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..format.constants import ADLER_BASE, ADLER_NMAX
 
 _BASE = ADLER_BASE
@@ -15,6 +15,8 @@ _BASE = ADLER_BASE
 
 def adler32(data, value: int = 1) -> int:
     """Adler-32 of `data` (bytes or uint8 ndarray), seeded with `value`."""
+    if native.available():
+        return native.adler32(data, value)
     buf = np.frombuffer(memoryview(data), dtype=np.uint8) if not isinstance(
         data, np.ndarray) else data.astype(np.uint8, copy=False)
     s1 = np.uint64(value & 0xFFFF)

@@ -1,15 +1,19 @@
-"""CRC-32 (gzip polynomial), slicing-by-8 in numpy, and the exact GF(2)
-combine (zlib-ng crc32.c, crc32_braid_comb.c semantics; the numpy path of
+"""CRC-32 (gzip polynomial): the host runtime's C route first
+(`native/zng_host.c`), else slicing-by-8 in numpy; and the exact GF(2)
+combine (zlib-ng crc32.c, crc32_braid_comb.c semantics; the routes of
 `zlibng_tpu/checksum/crc32.py`)."""
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..format.constants import CRC_POLY, CRC_TABLE, CRC_TABLES
 
 
 def crc32(data, value: int = 0) -> int:
     """CRC-32 of `data`, seeded with `value` (matches zlib crc32())."""
+    if native.available():
+        return native.crc32(data, value)
     buf = np.frombuffer(memoryview(data), dtype=np.uint8) if not isinstance(
         data, np.ndarray) else data.astype(np.uint8, copy=False)
     crc = np.uint32(value) ^ np.uint32(0xFFFFFFFF)

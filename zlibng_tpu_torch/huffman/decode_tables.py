@@ -1,14 +1,19 @@
 """Huffman decode table construction (inftrees.c acceptance rules).
 
-The numpy path of `zlibng_tpu/huffman/decode_tables.py`: validates
+The port's copy of `zlibng_tpu/huffman/decode_tables.py`: validates
 code-length sets (oversubscribed / incomplete) exactly where zlib-ng's
 inftrees.c rejects them, and builds a flat 2^max_len LSB-first lookup table
-(one gather per symbol) instead of the two-level root/sub-table walk.
+(one gather per symbol) instead of the two-level root/sub-table walk; the
+packed table's fill runs in the host runtime (`native/zng_host.c`
+zng_fill_lut) when it is built, else in numpy.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
+from .. import native
 from ..format.constants import canonical_codes, reverse_bits
 
 # Table kinds (inftrees.h codetype)
@@ -50,6 +55,13 @@ def build_packed_lut(lengths: np.ndarray, kind: int,
         # error-forcing table, like inftrees.c's max==0 path
         return np.full(1 << max(max_len, 1), -16, dtype=np.int32)
     max_len = max(max_len, int(lengths.max()))
+    lib = native.lib()
+    if lib is not None:
+        out = np.empty(1 << max_len, dtype=np.int32)
+        lib.zng_fill_lut(ctypes.c_void_p(lengths.ctypes.data),
+                         lengths.size, max_len,
+                         ctypes.c_void_p(out.ctypes.data))
+        return out
     sym, bits = build_decode_lut(lengths, kind, max_len=max_len)
     return ((sym.astype(np.int64) << 4) | bits).astype(np.int32)
 

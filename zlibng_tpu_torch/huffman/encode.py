@@ -3,14 +3,16 @@ codes, and the dynamic-block header (code-length-tree RLE).
 
 The host encoder's copy of `zlibng_tpu/huffman/encode.py` (zlib-ng
 trees.c build_tree/gen_bitlen/gen_codes :185-405, scan_tree/send_tree
-:411-521), numpy only: the reference also has a C build of the same
-construction, which the port does not carry; the tests hold this copy to
-the reference's output.
+:411-521). `huffman_table` and `build_dynamic_header` take the host
+runtime's C build of the same construction first (`native/zng_host.c`,
+identical tie-breaking), else the numpy route below; the tests hold both
+routes to the reference's.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..format.constants import (
     BL_ORDER, MAX_BITS, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
     canonical_codes, reverse_bits,
@@ -112,7 +114,10 @@ def _limit_lengths(freqs: np.ndarray, lengths: np.ndarray,
 
 def huffman_table(freqs: np.ndarray, max_bits: int = MAX_BITS):
     """(lengths, lsb_first_codes) ready for bitstream emission."""
-    lengths = huffman_code_lengths(np.asarray(freqs), max_bits)
+    freqs = np.asarray(freqs)
+    if freqs.size <= 320 and native.available():
+        return native.huff_table(freqs, max_bits)
+    lengths = huffman_code_lengths(freqs, max_bits)
     codes = canonical_codes(lengths, max_bits)
     return lengths, reverse_bits(codes, lengths, max_bits)
 
@@ -163,6 +168,9 @@ _CL_EXTRA = {REP_3_6: 2, REPZ_3_10: 3, REPZ_11_138: 7}
 def build_dynamic_header(lit_lengths: np.ndarray, dist_lengths: np.ndarray):
     """The dynamic-block header as a (value, nbits) token list and its
     total bits (trees.c send_all_trees)."""
+    if native.available():
+        tv, tb, total = native.dyn_header(lit_lengths, dist_lengths)
+        return list(zip(tv.tolist(), tb.tolist())), total
     # trailing-zero trimming with the minimums hlit >= 257, hdist >= 1
     hlit = max(257, int(np.max(np.nonzero(lit_lengths)[0])) + 1) \
         if np.any(lit_lengths) else 257

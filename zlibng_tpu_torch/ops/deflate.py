@@ -80,6 +80,7 @@ GROUP_BYTES = 1 << 21
 # lane groups in flight between stage 1 and the stitch
 DEPTH = 2
 HDR_OUT = 512            # header pack bucket (worst dynamic header < 440 B)
+HMAX = 704               # max dynamic-header tokens (worst-case RLE)
 _INF = 1 << 29
 
 
@@ -100,21 +101,24 @@ class _StageClock:
     """Per-stage seconds of one compress call: on a card, device time
     between CUDA events recorded around each device stage's work (read
     once, after the run); on the CPU, and for the host stitch, the host's
-    clock."""
+    clock. The events go on the current stream of the call's card, which
+    need not be the current device."""
 
     def __init__(self, dev: torch.device):
         self.cuda = dev.type == "cuda"
+        self.dev = dev
         self.events: list[tuple[str, object, object]] = []
         self.seconds = dict.fromkeys(stage_seconds, 0.0)
 
     @contextlib.contextmanager
     def stage(self, name: str, on_device: bool = True):
         if self.cuda and on_device:
+            stream = torch.cuda.current_stream(self.dev)
             a = torch.cuda.Event(enable_timing=True)
-            a.record()
+            a.record(stream)
             yield
             b = torch.cuda.Event(enable_timing=True)
-            b.record()
+            b.record(stream)
             self.events.append((name, a, b))
         else:
             t0 = time.perf_counter()
@@ -123,7 +127,7 @@ class _StageClock:
 
     def publish(self) -> None:
         if self.events:
-            torch.cuda.synchronize()
+            torch.cuda.synchronize(self.dev)
             for name, a, b in self.events:
                 self.seconds[name] += a.elapsed_time(b) / 1e3
         stage_seconds.update(self.seconds)
@@ -568,6 +572,48 @@ class _BitStitcher:
 
     def getvalue(self) -> bytes:
         return bytes(self.buf)
+
+
+def _header_tokens_to_arrays(tokens: list[tuple[int, int]]):
+    """Header (value, nbits) pairs as padded (HMAX,) lo/hi/nb arrays."""
+    if len(tokens) > HMAX:
+        raise ValueError(f"{len(tokens)} header tokens, more than {HMAX}")
+    lo = np.zeros(HMAX, np.uint32)
+    hi = np.zeros(HMAX, np.uint32)
+    nb = np.zeros(HMAX, np.int32)
+    for i, (v, n) in enumerate(tokens):
+        lo[i] = v & 0xFFFFFFFF
+        hi[i] = (v >> 32) & 0xFFFFFFFF
+        nb[i] = n
+    return lo, hi, nb
+
+
+def _extra_bits_batch(lfreqs: np.ndarray, dfreqs: np.ndarray) -> np.ndarray:
+    """Length and distance extra bits of each row's symbols: (U, 286),
+    (U, 30) int64 -> (U,) int64."""
+    lext = np.zeros(286, np.int64)
+    lext[257:286] = LENGTH_EXTRA[:29]
+    dext = DIST_EXTRA[:30].astype(np.int64)
+    return lfreqs @ lext + dfreqs @ dext
+
+
+def _est_block_bits_batch(lfreqs: np.ndarray, dfreqs: np.ndarray,
+                          extra_v: np.ndarray) -> np.ndarray:
+    """Entropy + extra-bits + header-model estimate of a dynamic block for
+    each row: (U, 286), (U, 30) and the rows' `_extra_bits_batch` -> (U,)
+    float64, in the reference's numpy order of operations (the sharded
+    path's stored pre-pass)."""
+    bits = extra_v.astype(np.float64)
+    for f in (lfreqs, dfreqs):
+        tot = f.sum(axis=1, keepdims=True).astype(np.float64)
+        fv = f.astype(np.float64)
+        safe = np.maximum(fv, 1.0)
+        ent = np.where(f > 0,
+                       fv * (np.log2(np.maximum(tot, 1.0)) - np.log2(safe)),
+                       0.0)
+        bits += ent.sum(axis=1)
+    used = (lfreqs > 0).sum(axis=1) + (dfreqs > 0).sum(axis=1)
+    return bits + 3 + 14 + 57 + 5 * used
 
 
 # ---------------------------------------------------------------------------

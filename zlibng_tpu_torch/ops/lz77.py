@@ -322,6 +322,12 @@ def _hist_rows(sym: torch.Tensor, w: torch.Tensor, bins: int) -> torch.Tensor:
     return out.reshape(R, bins)
 
 
+def lane_freqs(lsym, dsym, sel, is_match):
+    """Lit/len (286) and distance (30) symbol histograms of each (B, N)
+    lane's selected tokens. Returns (B, 286) and (B, 30) int32."""
+    return _hist_rows(lsym, sel, 286), _hist_rows(dsym, sel & is_match, 30)
+
+
 def unit_freqs(lsym, dsym, sel, is_match, hist: int, unit: int, q: int):
     """Per-unit token histograms over (B, N) lanes: units are contiguous
     `unit`-byte ranges of the payload (tokens never cross them). Returns
