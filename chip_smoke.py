@@ -30,7 +30,14 @@ profiler, equal to the CPU port's sharded run on a 1 MiB prefix),
 decompress_segments_multichip of the indexed blob (equal to
 decompress_segments_cuda, and a corrupt blob raising the reference's
 text), and parallel.multihost over NCCL at world size 1 (the box has one
-card).
+card). Then the public surface, where it reaches the card: minigzip -t at
+L6 and L1 on the corpus, in-process and as a new process (each .gz equal
+to compress_cuda(data, level, wbits=31), K1 and K2 counted, decoded by
+the port's minigzip -d and by Python's gzip), compress_indexed of the
+first 2 MiB on the host Deflate (held to the reference's digest,
+`INDEXED_STREAM`) decoded by decompress_indexed_cuda on the device route,
+and host round trips of pyzlib, zng, gzopen and Deflate/Inflate.sync,
+which must launch no kernel.
 Then it holds each kernel (K1 probe walk, K2 parse walk) against its
 plain PyTorch version at the main path's shapes (K1 at dense 16, 64 and 2
 and at the chain-128 tune, where it also takes the deep probes, and on
@@ -57,6 +64,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -92,6 +100,15 @@ DEEP_TUNE = dict(chain=128, lazy=True, max_lazy=258, nice=258, good=12)
 # compress_tpu's stream of the corpus's first 2 MiB at L6 with DEEP_TUNE
 # (bytes, sha256[:16]), recomputed by the same slow test
 DEEP_STREAM = (642885, "f9643b06c189beb8")
+# the public surface phase's compress_indexed: the corpus's first 2 MiB at
+# level 6 with a full flush every 256 KiB (8 segments), on the host Deflate;
+# the reference's blob of it (bytes, sha256[:16]), recomputed by the slow
+# test of tests/test_torch_isolation.py
+INDEXED_PREFIX = 2 << 20
+INDEXED_SEGMENT = 1 << 18
+INDEXED_STREAM = (661103, "e1317ab56746f4ce")
+# the public surface phase's host round trips: a prefix of the corpus
+HOST_SURFACE_BYTES = 1 << 18
 
 
 def _rand64(seed: int, stream: int, n: int) -> np.ndarray:
@@ -1092,13 +1109,14 @@ def checksums(data: bytes) -> None:
               f"{host * 1e3:.2f} ms", flush=True)
 
 
-def native_runtime(data: bytes, l6_stream: bytes) -> None:
+def native_runtime(data: bytes, l6_stream: bytes) -> bytes:
     """The host runtime (native/zng_host.c) on the whole corpus: gzip
     framing of compress_cuda (its CRC-32 in C), the decode of that stream
     (over 1 MiB: the host engine, the C serial decoder and CRC-32) against
     zlib, and, timed, the host CRC-32 and the serial decoder on the port's
     L6 stream (the stream the card's phase A gives up), each on its C and
-    its numpy route (the numpy CRC-32 on a 1 MiB prefix only)."""
+    its numpy route (the numpy CRC-32 on a 1 MiB prefix only). Returns the
+    gzip stream, compress_cuda(data, 6, wbits=31)."""
     from zlibng_tpu_torch import compress_cuda, decompress_cuda, native
     from zlibng_tpu_torch.checksum.crc32 import crc32
     from zlibng_tpu_torch.stream import inflate_serial
@@ -1163,6 +1181,206 @@ def native_runtime(data: bytes, l6_stream: bytes) -> None:
           f"{len(data) / s_min / 1e6:.1f} MB/s out, a memoryview; numpy "
           f"route {p_min:.3f} s = {len(data) / p_min / 1e6:.3f} MB/s; both "
           f"equal to the corpus", flush=True)
+    return gz
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _counted(fn) -> tuple:
+    """fn() with the K1 and K2 wrappers' counts set to 0 just before and
+    read just after: (result, seconds, {"K1": n, "K2": n})."""
+    from zlibng_tpu_torch.ops import parse, probe
+    probe.launches = parse.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return out, sec, {"K1": probe.launches, "K2": parse.launches}
+
+
+def _minigzip_t(data: bytes, level: int, want: bytes, main_launches: dict,
+                tmp: Path) -> None:
+    """minigzip -t -LEVEL -k of the corpus, in-process through
+    cli.minigzip.main (K1 and K2 counted: as many launches as the main
+    path's call at that level) and once more as `python -m
+    zlibng_tpu_torch.cli.minigzip` in a subprocess; both .gz files equal
+    compress_cuda(data, level, wbits=31), and decode to the corpus through
+    the port's minigzip -d (GzFile, Inflate, the C serial decoder; no
+    kernel launched) and through Python's gzip module."""
+    from zlibng_tpu_torch.cli import minigzip
+    src = tmp / f"corpus-L{level}.bin"
+    src.write_bytes(data)
+    gz_path = Path(f"{src}.gz")
+    rc, sec, launches = _counted(lambda: minigzip.main(
+        ["-t", f"-{level}", "-k", str(src)]))
+    name = f"public surface: minigzip -t -{level}"
+    if rc != 0 or gz_path.read_bytes() != want:
+        raise AssertionError(f"{name}: the .gz differs from "
+                             f"compress_cuda(data, {level}, wbits=31)")
+    if launches != main_launches or not all(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, the main path's "
+                             f"call {main_launches}")
+    print(f"{name} -k (in-process, cli.minigzip.main): {len(data)} B -> "
+          f"{len(want)} B in {sec:.3f} s = {len(data) / sec / 1e6:.3f} "
+          f"MB/s; equal to compress_cuda(data, {level}, wbits=31)",
+          flush=True)
+    print(f"{name} launches: K1 {launches['K1']}, K2 {launches['K2']} "
+          f"(the main path's call: {main_launches})", flush=True)
+    sub_src = tmp / f"corpus-L{level}-sub.bin"
+    sub_src.write_bytes(data)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "zlibng_tpu_torch.cli.minigzip",
+                        "-t", f"-{level}", "-k", str(sub_src)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    sub_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"{name} in a subprocess: rc {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    if Path(f"{sub_src}.gz").read_bytes() != want:
+        raise AssertionError(f"{name} in a subprocess: the .gz differs")
+    print(f"{name} -k (python -m zlibng_tpu_torch.cli.minigzip, a new "
+          f"process: start, kernel load, a cold call): {sub_s:.3f} s = "
+          f"{len(data) / sub_s / 1e6:.3f} MB/s; the .gz equal", flush=True)
+    src.unlink()
+    rc, dec_s, dec_launches = _counted(lambda: minigzip.main(
+        ["-d", str(gz_path)]))
+    if rc != 0 or src.read_bytes() != data or gz_path.exists():
+        raise AssertionError(f"{name}: minigzip -d did not give the corpus")
+    if any(dec_launches.values()):
+        raise AssertionError(f"{name}: minigzip -d launched {dec_launches}")
+    if gzip.decompress(want) != data:
+        raise AssertionError(f"{name}: Python's gzip module disagrees")
+    print(f"{name}: minigzip -d (host: GzFile, Inflate, C serial decoder) "
+          f"{dec_s:.3f} s = {len(data) / dec_s / 1e6:.3f} MB/s out, equal "
+          f"to the corpus, no kernel launched; Python's gzip module agrees",
+          flush=True)
+
+
+def _host_round_trips(data: bytes, tmp: Path) -> None:
+    """The host surface on a prefix, against stdlib zlib and gzip: pyzlib
+    one-shot and compressobj/decompressobj (chunked, Z_SYNC_FLUSH),
+    zng_compress2/zng_uncompress2, gzopen write then read, and Deflate
+    with Z_FULL_FLUSH resynced by Inflate.sync() past a damaged segment.
+    Every call runs on the host: no kernel may launch."""
+    from zlibng_tpu_torch import Deflate, Inflate, Z_FINISH, Z_FULL_FLUSH
+    from zlibng_tpu_torch import gzopen, pyzlib, zng
+    from zlibng_tpu_torch.errors import DataError
+    step = len(data) // 4
+
+    def trips() -> list:
+        done = []
+        if zlib.decompress(pyzlib.compress(data, 6)) != data or \
+                pyzlib.decompress(zlib.compress(data, 6)) != data:
+            raise AssertionError("pyzlib one-shot round trip failed")
+        done.append("pyzlib.compress/decompress")
+        co, std = pyzlib.compressobj(6), zlib.decompressobj()
+        do, src = pyzlib.decompressobj(), zlib.compress(data, 9)
+        for i in range(0, len(data), step):
+            piece = co.compress(data[i:i + step]) + co.flush(
+                pyzlib.Z_SYNC_FLUSH)
+            if std.decompress(piece) != data[i:i + step]:
+                raise AssertionError("pyzlib.compressobj: a sync-flushed "
+                                     "chunk did not decode with zlib")
+        back = b"".join(do.decompress(src[i:i + 4096])
+                        for i in range(0, len(src), 4096)) + do.flush()
+        if back != data or not do.eof:
+            raise AssertionError("pyzlib.decompressobj: chunked decode")
+        done.append("compressobj (chunks, Z_SYNC_FLUSH)/decompressobj")
+        c2 = zng.zng_compress2(data, 6)
+        if zlib.decompress(c2) != data or \
+                zng.zng_uncompress2(c2 + b"tail") != (data, len(c2)):
+            raise AssertionError("zng_compress2/zng_uncompress2")
+        done.append("zng_compress2/zng_uncompress2")
+        path = str(tmp / "surface.gz")
+        with gzopen(path, "wb") as f:
+            f.write(data)
+        with gzopen(path, "rb") as f:
+            back = f.read()
+        if back != data or gzip.decompress(Path(path).read_bytes()) != data:
+            raise AssertionError("gzopen write/read")
+        done.append("gzopen write/read")
+        d = Deflate(level=6, wbits=-15)
+        segs = [d.compress(data[i:i + step], Z_FULL_FLUSH
+                           if i + step < len(data) else Z_FINISH)
+                for i in range(0, len(data), step)]
+        if zlib.decompress(b"".join(segs), -15) != data:
+            raise AssertionError("Deflate Z_FULL_FLUSH: zlib round trip")
+        inf = Inflate(wbits=-15)
+        try:                     # block type 3 (invalid) in segment 0
+            inf.decompress(b"\xff" + segs[0][1:])
+        except DataError:
+            pass
+        else:
+            raise AssertionError("Inflate took a damaged segment")
+        if not inf.sync() or inf.decompress(b"".join(segs[1:]),
+                                            finish=True)[-3 * step:] \
+                != data[step:]:
+            raise AssertionError("Inflate.sync() past a damaged segment")
+        done.append("Deflate Z_FULL_FLUSH + Inflate.sync()")
+        return done
+
+    done, sec, launches = _counted(trips)
+    if any(launches.values()):
+        raise AssertionError(f"host surface launched kernels {launches}")
+    print(f"public surface: host round trips on {len(data)} B, equal to "
+          f"stdlib zlib/gzip: {'; '.join(done)}; {sec:.3f} s", flush=True)
+    print(f"public surface host round trips launches: K1 {launches['K1']}, "
+          f"K2 {launches['K2']}", flush=True)
+
+
+def public_surface(data: bytes, gz6: bytes, runs: dict) -> None:
+    """The public surface on the card where the reference's reaches the
+    TPU: minigzip -t at L6 and L1 (compress_cuda; K1 and K2 counted), and
+    decompress_indexed_cuda of compress_indexed's blob (the host Deflate
+    with full flushes; its digest pinned to the reference's, INDEXED_STREAM)
+    on the device route; then the host surface's round trips, which launch
+    no kernel."""
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.parallel.index import (
+        compress_indexed, decompress_indexed_cuda,
+    )
+    print(f"public surface on {card()}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        gz1 = compress_cuda(data, 1, wbits=31)
+        if gz1[10:-8] != runs[1, 0]["stream"][2:-4]:
+            raise AssertionError("gzip framing: payload differs from the "
+                                 "zlib stream's at L1")
+        for level, want in ((6, gz6), (1, gz1)):
+            _minigzip_t(data, level, want, runs[level, 0]["launches"], tmp)
+        prefix = data[:INDEXED_PREFIX]
+        t0 = time.perf_counter()
+        blob, idx = compress_indexed(prefix, level=6,
+                                     segment=INDEXED_SEGMENT)
+        comp_s = time.perf_counter() - t0
+        digest = (len(blob), hashlib.sha256(blob).hexdigest()[:16])
+        if digest != INDEXED_STREAM:
+            raise AssertionError(f"compress_indexed: {digest}, the "
+                                 f"reference's {INDEXED_STREAM}")
+        print(f"public surface: compress_indexed of {len(prefix)} B (L6, "
+              f"{len(idx.comp_offsets) - 1} segments of {INDEXED_SEGMENT} B,"
+              f" host Deflate) -> {len(blob)} B (sha256 {digest[1]}, equal "
+              f"to the reference's) in {comp_s:.3f} s = "
+              f"{len(prefix) / comp_s / 1e6:.3f} MB/s (the card box's CPU)",
+              flush=True)
+        r = _decode_run(lambda: decompress_indexed_cuda(blob, idx))
+        if r["out"] != prefix:
+            raise AssertionError(f"decompress_indexed_cuda of "
+                                 f"compress_indexed's blob ({r['error']})")
+        _device_route("public surface indexed decode", r)
+        print(f"public surface: decompress_indexed_cuda of compress_indexed's "
+              f"blob: equal to the prefix, device route; stats change "
+              f"{r['stats']}; " + _split(r), flush=True)
+        print(f"public surface indexed decode launches: K1 0, K2 {r['k2']} "
+              f"(phase A dispatches {r['split']['phase_a']})", flush=True)
+        _host_round_trips(data[:HOST_SURFACE_BYTES], tmp)
 
 
 SHARD_LANE_BLOCK = 1 << 16
@@ -1577,7 +1795,9 @@ def main() -> int:
     phase("decode framing and options", decode_options, data)
     phase("decode errors", decode_errors, data)
     phase("device checksums", checksums, data)
-    phase("native host runtime", native_runtime, data, runs[6, 0]["stream"])
+    gz6 = phase("native host runtime", native_runtime, data,
+                runs[6, 0]["stream"])
+    phase("public surface", public_surface, data, gz6, runs)
     shard_rows = []
     sharded = phase("sharded compress", sharded_compress, data, shard_rows)
     phase("sharded decode", sharded_decode, indexed, shard_rows)
@@ -1646,11 +1866,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total: {time.perf_counter() - t_all:.1f} s",
           flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,9 @@
 `ops/inflate.py:decompress_segments_cuda`, device="cpu") against the JAX
 package's on blobs from its `compress_indexed` and from stdlib zlib's
 Z_FULL_FLUSH; the index scan and StreamIndex JSON too. Outputs, error
-strings and `stats` deltas equal."""
+strings and `stats` deltas equal. The port's own `compress_indexed` (the
+host Deflate with a full flush per segment) writes the reference's blob
+and index, which decode on the port's device path."""
 import functools
 
 import pytest
@@ -129,3 +131,27 @@ def test_index_mismatch_error_matches_reference():
     want = _delta(itpu.stats, lambda: ref_index.decompress_indexed_tpu(
         blob, bad))
     assert got == want and got[0] == "error: index/stream mismatch"
+
+
+@pytest.mark.parametrize("segment", [1 << 14, 1 << 12])
+def test_compress_indexed_matches_reference(segment):
+    data = _data()[:36000] + bytes(8000) + sample("runs", 12000)
+    blob, idx = tindex.compress_indexed(data, level=6, segment=segment)
+    ref_blob, ref_idx = ref_index.compress_indexed(data, level=6,
+                                                   segment=segment)
+    assert blob == ref_blob and idx.to_json() == ref_idx.to_json()
+    assert len(blob) < 16384 and len(idx.comp_offsets) >= 5
+    got = _delta(ti.stats, lambda: tindex.decompress_indexed_cuda(
+        blob, idx, device="cpu"))
+    assert got[0] == data and got[1]["device_ok"] == 1
+    assert tindex.decompress_indexed(blob, idx) == data
+
+
+@pytest.mark.parametrize("data", [b"", b"x", bytes(1000)],
+                         ids=["empty", "one byte", "1000 zeros"])
+def test_compress_indexed_edges_match_reference(data):
+    blob, idx = tindex.compress_indexed(data, level=1, segment=256)
+    ref_blob, ref_idx = ref_index.compress_indexed(data, level=1,
+                                                   segment=256)
+    assert blob == ref_blob and idx.to_json() == ref_idx.to_json()
+    assert tindex.decompress_indexed(blob, idx) == data

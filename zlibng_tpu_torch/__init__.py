@@ -30,11 +30,30 @@ torch.distributed process group. The host runtime (`native/`, C built at
 first use) carries the checksums, the host Huffman builds and the serial
 decoder, each with a numpy route where no C compiler is found.
 """
-from .ops.deflate import compress_cuda
-from .ops.inflate import decompress_cuda
-from .parallel.sharded import (
+from .checksum.adler32 import adler32, adler32_combine
+from .checksum.crc32 import (
+    crc32, crc32_combine, crc32_combine_gen, crc32_combine_op,
+)
+from .errors import (
+    BufError, DataError, Error, NeedDictError, StreamError,
+)
+from .stream.deflate import (
+    Z_DEFAULT_STRATEGY, Z_FILTERED, Z_FIXED, Z_HUFFMAN_ONLY, Z_RLE,
+    compress, compress_bound,
+)
+from .stream.inflate import decompress, gzip_decompress
+
+# zng.py reads both: defined before any module that could import it
+__version__ = "0.1.0"
+ZLIBNG_PARITY_VERSION = "2.2.2"  # capability target (zlib-ng.h.in:51)
+
+from .stream.api import (                                        # noqa: E402
+    Deflate, Inflate, Z_BLOCK, Z_FINISH, Z_FULL_FLUSH, Z_NO_FLUSH,
+    Z_PARTIAL_FLUSH, Z_SYNC_FLUSH, Z_TREES,
+)
+from .stream.gzfile import GzFile, gzdopen, gzopen               # noqa: E402
+from .ops.deflate import compress_cuda                           # noqa: E402
+from .ops.inflate import decompress_cuda                         # noqa: E402
+from .parallel.sharded import (                                  # noqa: E402
     compress_multichip, decompress_segments_multichip,
 )
-
-__all__ = ["compress_cuda", "compress_multichip", "decompress_cuda",
-           "decompress_segments_multichip"]

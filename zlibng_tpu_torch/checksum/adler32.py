@@ -1,7 +1,8 @@
 """Adler-32 checksum (zlib-ng adler32.c semantics): the host runtime's C
 route first (`native/zng_host.c`), else per-block (sum, weighted-sum)
-reductions in numpy merged in closed form; and the exact combine of two
-checksums. The routes of `zlibng_tpu/checksum/adler32.py`.
+reductions in numpy merged in closed form; the exact combine of two
+checksums, and per-row partials of a 2-D array. The routes of
+`zlibng_tpu/checksum/adler32.py`.
 """
 from __future__ import annotations
 
@@ -51,3 +52,14 @@ def adler32_combine(adler1: int, adler2: int, len2: int) -> int:
     s1 = (s1a + s1b + _BASE - 1) % _BASE
     s2 = (s2a + s2b + rem * s1a + _BASE - rem) % _BASE
     return (s2 << 16) | s1
+
+
+def adler32_partials(chunks: np.ndarray) -> tuple[np.ndarray, int]:
+    """(adler32 of each row seeded with 1, row length) for a (num_chunks,
+    chunk_len) uint8 array; fold the row checksums with adler32_combine."""
+    chunks = chunks.astype(np.uint64)
+    m = chunks.shape[1]
+    s1 = (1 + chunks.sum(axis=1)) % _BASE
+    w = np.arange(m, 0, -1, dtype=np.uint64)
+    s2 = (m + (chunks * w).sum(axis=1)) % _BASE
+    return ((s2 << np.uint64(16)) | s1).astype(np.uint32), m

@@ -1,7 +1,8 @@
 """CRC-32 (gzip polynomial): the host runtime's C route first
 (`native/zng_host.c`), else slicing-by-8 in numpy; and the exact GF(2)
-combine (zlib-ng crc32.c, crc32_braid_comb.c semantics; the routes of
-`zlibng_tpu/checksum/crc32.py`)."""
+combine, whole or through a precomputed operator (zlib-ng crc32.c,
+crc32_braid_comb.c semantics; the routes of `zlibng_tpu/checksum/crc32.py`).
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -83,7 +84,19 @@ def _shift_operator(len2: int) -> np.ndarray:
     return result
 
 
+def crc32_combine_gen(len2: int) -> np.ndarray:
+    """The combine operator for a second stream of len2 bytes, computed
+    once (zng_crc32_combine_gen)."""
+    return _shift_operator(len2)
+
+
+def crc32_combine_op(crc1: int, crc2: int, op: np.ndarray) -> int:
+    """crc32(A||B) through an operator of crc32_combine_gen
+    (zng_crc32_combine_op)."""
+    return _gf2_matrix_times(op, crc1) ^ crc2
+
+
 def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
     """crc32(A||B) from crc32(A), crc32(B) and |B| = len2
     (zng_crc32_combine)."""
-    return _gf2_matrix_times(_shift_operator(len2), crc1) ^ crc2
+    return crc32_combine_op(crc1, crc2, crc32_combine_gen(len2))

@@ -4,8 +4,8 @@ Counterpart of `zlibng_tpu/parallel/index.py`. Z_FULL_FLUSH emits a
 byte-aligned empty stored block (00 00 FF FF) and resets history, so the
 stream after a marker decodes on its own (what pigz emits and inflateSync
 scans for, zlib-ng inflate.c:1290-1366). An index is either recorded at
-compress time (exact) or rebuilt by scanning for markers (speculative,
-verified by decoding).
+compress time (exact: `compress_indexed`) or rebuilt by scanning for
+markers (speculative, verified by decoding).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import json
 from dataclasses import dataclass, field
 
 from ..errors import DataError
+from ..stream.api import Deflate, Z_FINISH, Z_FULL_FLUSH
 from ..stream.inflate_serial import RawInflater
 
 SYNC_MARKER = b"\x00\x00\xff\xff"
@@ -37,6 +38,33 @@ class StreamIndex:
     def from_json(cls, s: str) -> "StreamIndex":
         d = json.loads(s)
         return cls(d["comp"], d["out"], d["total_out"])
+
+
+def compress_indexed(data: bytes, level: int = 6, segment: int = 1 << 20):
+    """Raw deflate of `data` with a full flush every `segment` bytes, on the
+    host's Deflate, and its StreamIndex: (blob, index). Each segment decodes
+    on its own (the exact index; decompress_indexed_cuda decodes it on the
+    card)."""
+    d = Deflate(level=level, wbits=-15)
+    blob = bytearray()
+    idx = StreamIndex()
+    pos = 0
+    while pos < len(data):
+        take = min(segment, len(data) - pos)
+        idx.comp_offsets.append(len(blob))
+        idx.out_offsets.append(pos)
+        last = pos + take >= len(data)
+        blob += d.compress(data[pos:pos + take],
+                           Z_FINISH if last else Z_FULL_FLUSH)
+        pos += take
+    if not data:
+        idx.comp_offsets.append(0)
+        idx.out_offsets.append(0)
+        blob += d.compress(b"", Z_FINISH)
+    idx.comp_offsets.append(len(blob))
+    idx.out_offsets.append(len(data))
+    idx.total_out = len(data)
+    return bytes(blob), idx
 
 
 def decompress_indexed(blob: bytes, index: StreamIndex) -> bytes:

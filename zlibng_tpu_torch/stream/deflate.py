@@ -258,13 +258,14 @@ def _emit_block(raw: np.ndarray, sel_val, sel_len, sel_dist, final: bool,
 # ---------------------------------------------------------------------------
 def compress(data, level: int = 6, wbits: int = 15,
              strategy: int = Z_DEFAULT_STRATEGY,
-             dictionary: bytes | None = None) -> bytes:
+             dictionary: bytes | None = None,
+             block_size: int = DEFAULT_BLOCK) -> bytes:
     """Compress on the host to zlib (wbits 9..15), raw (-9..-15) or gzip
-    (+16) format."""
+    (+16) format, one deflate block per `block_size` input bytes."""
     if not (-15 <= wbits <= 31):
         raise StreamError("invalid windowBits")
     buf = np.frombuffer(memoryview(bytes(data)), dtype=np.uint8)
-    payload = _deflate_payload(buf, level, strategy, dictionary,
+    payload = _deflate_payload(buf, level, strategy, dictionary, block_size,
                                window=effective_window(wbits))
     if wbits < 0:
         return payload
@@ -278,7 +279,7 @@ def compress(data, level: int = 6, wbits: int = 15,
 
 
 def _deflate_payload(buf: np.ndarray, level: int, strategy: int,
-                     dictionary: bytes | None,
+                     dictionary: bytes | None, block_size: int,
                      window: int = WINDOW_SIZE) -> bytes:
     n = buf.size
     if dictionary:
@@ -293,8 +294,8 @@ def _deflate_payload(buf: np.ndarray, level: int, strategy: int,
     cfg = _match_config(level)
     all_vals, all_nbits = [], []
     mod8 = 0
-    # stored LEN is 16-bit
-    block_size = min(DEFAULT_BLOCK, 0xFFFF) if level == 0 else DEFAULT_BLOCK
+    if level == 0:
+        block_size = min(block_size, 0xFFFF)  # stored LEN is 16-bit
     if n == 0:
         blocks = [(base, base)]
     else:
