@@ -23,8 +23,9 @@ def test_levels_byte_identical(level, corpus):
 
 
 def test_tracing_reports_dispatches_and_block_bits():
-    """With tracing on, every dispatch is traced and every coded block's
-    bits are audited against its stored bound (none may exceed it)."""
+    """With tracing on, every stage's span is traced with its lane group
+    and every coded block's bits are audited against its stored bound
+    (none may exceed it)."""
     from zlibng_tpu_torch import trace
     from zlibng_tpu_torch.ops import deflate as tdef
     data = sample("text", N)
@@ -36,8 +37,12 @@ def test_tracing_reports_dispatches_and_block_bits():
     finally:
         trace.enable(False)
     assert got == compress_tpu(data, 6)
-    assert any("stage1 dispatch" in ln for ln in lines)
-    assert any("stage2-auto dispatch" in ln for ln in lines)
+    assert any(ln.startswith("[zlibng_tpu_torch] stage1#")
+               and " group=0 " in ln for ln in lines)
+    assert any(ln.startswith("[zlibng_tpu_torch] stage2#")
+               and " group=0 " in ln for ln in lines)
+    assert any(ln.startswith("[zlibng_tpu_torch] stage2.partition#")
+               for ln in lines)
     blocks = [ln for ln in lines if "bits_sent=" in ln]
     assert blocks and not any("OVERRUN" in ln for ln in blocks)
     assert tdef.audit["groups_checked"] - before["groups_checked"] \

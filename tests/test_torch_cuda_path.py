@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 import zlibng_tpu_torch
-from zlibng_tpu_torch import _build, compress_cuda, decompress_cuda
+from zlibng_tpu_torch import _build, compress_cuda, decompress_cuda, trace
 from zlibng_tpu_torch.errors import DataError, StreamError
 from zlibng_tpu_torch.ops import (
     checksum, deflate, inflate, lz77, parse, probe,
@@ -200,8 +200,9 @@ def test_quick_path_on_card_matches_cpu(card, level, strategy):
 
 
 def test_stage_clock_times_the_stream_of_its_card(monkeypatch):
-    """compress_cuda's stage clock records its events on the current stream
-    of the call's card and waits for that card, not the current device."""
+    """A compress call's device spans record their events on the current
+    stream of the call's card, and its root waits for that card, not the
+    current device."""
     seen = {"record": [], "sync": []}
 
     class Event:
@@ -220,12 +221,11 @@ def test_stage_clock_times_the_stream_of_its_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize",
                         lambda device=None: seen["sync"].append(device))
     card1 = torch.device("cuda", 1)
-    clock = deflate._StageClock(card1)
-    with clock.stage("stage1"):
-        pass
-    with clock.stage("stitch", on_device=False):
-        pass
-    clock.publish()
+    with trace.call("compress", deflate._publish):
+        with trace.span("stage1", card1, group=0):
+            pass
+        with trace.span("stitch", group=0):
+            pass
     assert seen["record"] == [("stream of", card1)] * 2
     assert seen["sync"] == [card1]
     assert deflate.stage_seconds["stage1"] == 0.25

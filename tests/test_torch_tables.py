@@ -115,15 +115,20 @@ def test_errors_and_trace():
     lines = []
     try:
         trace.enable(True, sink=lines.append)
-        with trace.span("stage %d", 1):
-            pass
+        with trace.call("test", lambda c: None) as call:
+            with trace.span("stage", group=1):
+                pass
         trace.trace("hello %s", "port")
     finally:
         trace.enable(False)
-    assert lines[0].startswith("[zlibng_tpu_torch] stage 1: ")
-    assert lines[1] == "[zlibng_tpu_torch] hello port"
+    assert lines[0].startswith(f"[zlibng_tpu_torch] test#0 call={call.id} "
+                               "host=")
+    assert lines[1].startswith(f"[zlibng_tpu_torch] stage#1 call={call.id} "
+                               "group=1 parent=test#0 host=")
+    assert lines[1].endswith(" ms")
+    assert lines[2] == "[zlibng_tpu_torch] hello port"
     trace.trace("silent")
-    assert len(lines) == 2
+    assert len(lines) == 3
 
 
 def test_pack_bits_and_stitcher_equal():

@@ -25,9 +25,6 @@ byte-identical to `compress_tpu`.
 """
 from __future__ import annotations
 
-import contextlib
-import time
-
 import numpy as np
 import torch
 
@@ -45,7 +42,7 @@ from ..stream.deflate import (
     LEVELS, Z_DEFAULT_STRATEGY, Z_FIXED, level_config_from,
 )
 from ..stream.deflate import compress as compress_host
-from ..trace import span, trace
+from ..trace import count, fetch, span, trace, upload
 from .bitpack import _or_field
 from .bitpack_merge import hierarchical_pack
 from .huffman import dyn_header, huff_table
@@ -60,8 +57,13 @@ I32 = torch.int32
 # bit-accounting audit counters (trees.c:693 compressed_len == bits_sent
 # analog; populated only while tracing is enabled)
 audit = {"groups_checked": 0, "bit_overruns": 0}
-# seconds per stage of the last compress call: device time between CUDA
-# events around each stage's work on a card, host wall time on the CPU
+# the last compress call's spans and counters (`trace.py`), filled when
+# the call closes: each span name (dotted: `stage2.render`) with its
+# seconds summed over the call, device time between CUDA events on a
+# card for spans of device work (stage1, stage2 and stage2's parts), the
+# host's clock for the others and on the CPU (frame, stitch with its
+# fetch, every `.fetch`); each counter under its name and `.n` (`syncs.n`,
+# `stage2.groups.n`, `stage2.redispatch.n`)
 stage_seconds = {"stage1": 0.0, "stage2": 0.0, "stitch": 0.0}
 
 LANE_HIST = WINDOW_SIZE          # 32768
@@ -95,42 +97,6 @@ def _device(device, who: str = "compress_cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"{who}: unsupported device {dev}")
     return dev
-
-
-class _StageClock:
-    """Per-stage seconds of one compress call: on a card, device time
-    between CUDA events recorded around each device stage's work (read
-    once, after the run); on the CPU, and for the host stitch, the host's
-    clock. The events go on the current stream of the call's card, which
-    need not be the current device."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-        self.dev = dev
-        self.events: list[tuple[str, object, object]] = []
-        self.seconds = dict.fromkeys(stage_seconds, 0.0)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, on_device: bool = True):
-        if self.cuda and on_device:
-            stream = torch.cuda.current_stream(self.dev)
-            a = torch.cuda.Event(enable_timing=True)
-            a.record(stream)
-            yield
-            b = torch.cuda.Event(enable_timing=True)
-            b.record(stream)
-            self.events.append((name, a, b))
-        else:
-            t0 = time.perf_counter()
-            yield
-            self.seconds[name] += time.perf_counter() - t0
-
-    def publish(self) -> None:
-        if self.events:
-            torch.cuda.synchronize(self.dev)
-            for name, a, b in self.events:
-                self.seconds[name] += a.elapsed_time(b) / 1e3
-        stage_seconds.update(self.seconds)
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +146,10 @@ def _stage1(flat, enc_ends, hist_valids, lane_block, chain, lazy, max_lazy,
     return toks, lfreqs, dfreqs
 
 
-def _render_pack_unit(qbytes, tl, td, se, lt, lc, dt, dc, out_bytes):
-    """Demotion + render + pack of (U, UNIT) units against per-unit
-    (lt, lc, dt, dc) code tables ((U, 288) and (U, 30))."""
+def _render_unit(qbytes, tl, td, se, lt, lc, dt, dc):
+    """Demotion + render of (U, UNIT) units against per-unit (lt, lc, dt,
+    dc) code tables ((U, 288) and (U, 30)): the (lo, hi, nbits) token
+    fields that hierarchical_pack packs."""
     tl = tl.to(I32)
     td = td.to(I32)
     U, N = tl.shape
@@ -231,12 +198,12 @@ def _render_pack_unit(qbytes, tl, td, se, lt, lc, dt, dc, out_bytes):
     nb = torch.where(se, n0 + le + dn + de, 0).to(I32)
     lo = torch.where(se, lo, 0)
     hi = torch.where(se, hi, 0)
-    return hierarchical_pack(lo, hi, nb, out_bytes)
+    return lo, hi, nb
 
 
 def _consts(dev):
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+        return upload(np.asarray(a, np.int32), dev)
 
     lext = np.zeros(286, np.int32)
     lext[257:286] = LENGTH_EXTRA[:29]
@@ -285,10 +252,87 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
     headers, the optimal contiguous power-of-2 partition by DP, then the
     per-unit render + pack (zlib-ng trees.c:322-405 tree build, :411-521
     header, :657-692 block-type choice). pay/tlq/tdq/seq: (B, qpl, UNIT);
-    lfreq_u (B, qpl, 286); dfreq_u (B, qpl, 30); unit_lens (B, qpl)."""
+    lfreq_u (B, qpl, 286); dfreq_u (B, qpl, 30); unit_lens (B, qpl).
+    Spans: stage2.partition, stage2.huffman, stage2.render, stage2.pack."""
     B = pay.shape[0]
     dev = pay.device
-    C = _consts(dev)
+    G = B * qpl
+    with span("stage2.partition", dev):
+        C = _consts(dev)
+        (lfreq_n, ndf, nsto, extra_n, sta_n, assign, first_q,
+         last_q) = _partition(lfreq_u, dfreq_u, unit_lens, qpl, C)
+
+    # ---- exact build for the qpl assigned blocks ------------------------
+    with span("stage2.huffman", dev):
+        lfreq_b = lfreq_n.gather(1, assign[..., None].expand(B, qpl, 286))
+        dfreq_b = ndf.gather(1, assign[..., None].expand(B, qpl, 30))
+        llen_b, lcode_b = huff_table(lfreq_b.reshape(G, 286), MAX_BITS)
+        dlen_b, dcode_b = huff_table(dfreq_b.reshape(G, 30), MAX_BITS)
+        hdr_lo_b, hdr_nb_b, hdr_bits_b = dyn_header(llen_b, dlen_b, 4)
+        # exact block-type choice (trees.c:657-692): dyn vs static vs stored
+        extra_b = extra_n.gather(1, assign)
+        dyn_b = ((lfreq_b * llen_b.reshape(B, qpl, 286)).sum(-1)
+                 + (dfreq_b * dlen_b.reshape(B, qpl, 30)).sum(-1)
+                 + extra_b + hdr_bits_b.reshape(B, qpl))
+        sta_b = sta_n.gather(1, assign)
+        sto_b = nsto.gather(1, assign)
+        best_code = torch.minimum(dyn_b, sta_b)    # static wins ties
+        use_dyn = dyn_b < sta_b
+        use_sto = sto_b < best_code + 3
+        btype_u = torch.where(use_sto, 0, torch.where(use_dyn, 2, 1))
+        btype_u = torch.where(unit_lens > 0, btype_u, 0).reshape(G)
+
+    with span("stage2.render", dev):
+        # ---- per-unit tables + body render ------------------------------
+        dynsel = (btype_u == 2)[:, None]
+        z2 = torch.zeros((G, 2), dtype=I32, device=dev)
+        lt_u = torch.where(dynsel, torch.cat([llen_b, z2], 1), C["fl288"])
+        lc_u = torch.where(dynsel, torch.cat([lcode_b, z2], 1), C["flc"])
+        dt_u = torch.where(dynsel, dlen_b, C["fdl"])
+        dc_u = torch.where(dynsel, dcode_b, C["fdc"])
+        body = _render_unit(
+            pay.reshape(G, UNIT), tlq.reshape(G, UNIT), tdq.reshape(G, UNIT),
+            seq.reshape(G, UNIT), lt_u, lc_u, dt_u, dc_u)
+
+        # ---- per-unit header tokens (first-of-block only) ---------------
+        first_q = first_q.reshape(G)
+        last_q = last_q.reshape(G)
+        is_dyn_hdr = (first_q & (btype_u == 2))[:, None]
+        is_sta_hdr = first_q & (btype_u == 1)
+        hlo_u = torch.where(is_dyn_hdr, hdr_lo_b, 0)
+        hnb_u = torch.where(is_dyn_hdr, hdr_nb_b, 0)
+        # static header: a single 3-bit token in slot 0 (BFINAL patched on
+        # host)
+        hlo_u[:, 0] = torch.where(is_sta_hdr, 2, hlo_u[:, 0])
+        hnb_u[:, 0] = torch.where(is_sta_hdr, 3, hnb_u[:, 0])
+
+        # ---- per-unit descriptor: btype | first | last | eob ------------
+        eob_code = torch.where(btype_u == 2, lcode_b[:, 256], C["flc"][256])
+        eob_nb = torch.where(btype_u == 2, llen_b[:, 256], 7)
+        has_eob = last_q & (btype_u != 0)
+        desc = (btype_u | (first_q.to(I32) << 2) | (last_q.to(I32) << 3)
+                | (torch.where(has_eob, eob_nb, 0) << 4)
+                | (torch.where(has_eob, eob_code, 0) << 9))
+
+    with span("stage2.pack", dev):
+        body_packed, body_bits = hierarchical_pack(*body, out_bytes)
+        hdr_packed, hdr_bits = hierarchical_pack(
+            hlo_u, torch.zeros_like(hlo_u), hnb_u, HDR_OUT)
+        meta = torch.stack([body_bits, hdr_bits, desc.to(I32)], -1).to(I32)
+    return (body_packed.reshape(B, qpl, out_bytes),
+            hdr_packed.reshape(B, qpl, HDR_OUT), meta.reshape(B, qpl, 3))
+
+
+def _partition(lfreq_u, dfreq_u, unit_lens, qpl: int, C: dict):
+    """The node pyramid of each lane's qpl units, their estimated costs and
+    the DP's optimal contiguous power-of-2 partition, walked down to each
+    unit's block. Returns (lfreq_n (B, nodes, 286) with one EOB per node,
+    ndf (B, nodes, 30), nsto, extra_n and sta_n (B, nodes): stored bits,
+    extra bits and static bits of each node; assign (B, qpl) int64: each
+    unit's node; first_q, last_q (B, qpl) bool: first and last unit of its
+    block)."""
+    B = lfreq_u.shape[0]
+    dev = lfreq_u.device
     nlev = qpl.bit_length()                    # qpl = 2^(nlev-1)
 
     # ---- node pyramid: freqs / stored cost / empty-unit poisoning -------
@@ -312,8 +356,10 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
     lfreq_n[..., 256] += 1                     # one EOB per block
     extra_n = ((lfreq_n * C["lext"]).sum(-1)
                + (ndf * C["dext"]).sum(-1)).to(I32)
-    est_dyn_n = _est_dyn(torch.cat([lfreq_n, ndf], -1).cpu(),
-                         C["lext"].cpu(), C["dext"].cpu()).to(dev)
+    # the estimate's round trip through the host (see _est_dyn)
+    est_dyn_n = upload(_est_dyn(
+        *(torch.from_numpy(fetch(t)) for t in (
+            torch.cat([lfreq_n, ndf], -1), C["lext"], C["dext"]))), dev)
     sta_n = ((lfreq_n * C["fll"]).sum(-1) + (ndf * C["fdl"]).sum(-1)
              + extra_n + 3).to(I32)
     cost_n = torch.minimum(torch.minimum(est_dyn_n, sta_n), nsto)
@@ -344,64 +390,10 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
         assign = torch.where(take, offs[lv] + j, assign)
         lv_of = torch.where(take, lv, lv_of)
         taken = taken | take
-    span = 1 << lv_of                          # units in my block
-    first_q = (q & (span - 1)) == 0
-    last_q = (q & (span - 1)) == span - 1
-
-    # ---- exact build for the qpl assigned blocks ------------------------
-    G = B * qpl
-    lfreq_b = lfreq_n.gather(1, assign[..., None].expand(B, qpl, 286))
-    dfreq_b = ndf.gather(1, assign[..., None].expand(B, qpl, 30))
-    llen_b, lcode_b = huff_table(lfreq_b.reshape(G, 286), MAX_BITS)
-    dlen_b, dcode_b = huff_table(dfreq_b.reshape(G, 30), MAX_BITS)
-    hdr_lo_b, hdr_nb_b, hdr_bits_b = dyn_header(llen_b, dlen_b, 4)
-    # exact block-type choice (trees.c:657-692): dyn vs static vs stored
-    extra_b = extra_n.gather(1, assign)
-    dyn_b = ((lfreq_b * llen_b.reshape(B, qpl, 286)).sum(-1)
-             + (dfreq_b * dlen_b.reshape(B, qpl, 30)).sum(-1)
-             + extra_b + hdr_bits_b.reshape(B, qpl))
-    sta_b = sta_n.gather(1, assign)
-    sto_b = nsto.gather(1, assign)
-    best_code = torch.minimum(dyn_b, sta_b)    # static wins ties
-    use_dyn = dyn_b < sta_b
-    use_sto = sto_b < best_code + 3
-    btype_u = torch.where(use_sto, 0, torch.where(use_dyn, 2, 1))
-    btype_u = torch.where(unit_lens > 0, btype_u, 0).reshape(G)
-
-    # ---- per-unit tables + body render/pack -----------------------------
-    dynsel = (btype_u == 2)[:, None]
-    z2 = torch.zeros((G, 2), dtype=I32, device=dev)
-    lt_u = torch.where(dynsel, torch.cat([llen_b, z2], 1), C["fl288"])
-    lc_u = torch.where(dynsel, torch.cat([lcode_b, z2], 1), C["flc"])
-    dt_u = torch.where(dynsel, dlen_b, C["fdl"])
-    dc_u = torch.where(dynsel, dcode_b, C["fdc"])
-    body_packed, body_bits = _render_pack_unit(
-        pay.reshape(G, UNIT), tlq.reshape(G, UNIT), tdq.reshape(G, UNIT),
-        seq.reshape(G, UNIT), lt_u, lc_u, dt_u, dc_u, out_bytes)
-
-    # ---- per-unit header pack (first-of-block only) ---------------------
-    first_q = first_q.reshape(G)
-    last_q = last_q.reshape(G)
-    is_dyn_hdr = (first_q & (btype_u == 2))[:, None]
-    is_sta_hdr = first_q & (btype_u == 1)
-    hlo_u = torch.where(is_dyn_hdr, hdr_lo_b, 0)
-    hnb_u = torch.where(is_dyn_hdr, hdr_nb_b, 0)
-    # static header: a single 3-bit token in slot 0 (BFINAL patched on host)
-    hlo_u[:, 0] = torch.where(is_sta_hdr, 2, hlo_u[:, 0])
-    hnb_u[:, 0] = torch.where(is_sta_hdr, 3, hnb_u[:, 0])
-    hdr_packed, hdr_bits = hierarchical_pack(hlo_u, torch.zeros_like(hlo_u),
-                                             hnb_u, HDR_OUT)
-
-    # ---- per-unit descriptor: btype | first | last | eob ----------------
-    eob_code = torch.where(btype_u == 2, lcode_b[:, 256], C["flc"][256])
-    eob_nb = torch.where(btype_u == 2, llen_b[:, 256], 7)
-    has_eob = last_q & (btype_u != 0)
-    desc = (btype_u | (first_q.to(I32) << 2) | (last_q.to(I32) << 3)
-            | (torch.where(has_eob, eob_nb, 0) << 4)
-            | (torch.where(has_eob, eob_code, 0) << 9))
-    meta = torch.stack([body_bits, hdr_bits, desc.to(I32)], -1).to(I32)
-    return (body_packed.reshape(B, qpl, out_bytes),
-            hdr_packed.reshape(B, qpl, HDR_OUT), meta.reshape(B, qpl, 3))
+    units = 1 << lv_of                         # units in my block
+    first_q = (q & (units - 1)) == 0
+    last_q = (q & (units - 1)) == units - 1
+    return lfreq_n, ndf, nsto, extra_n, sta_n, assign, first_q, last_q
 
 
 def _stage2_auto(flat, tok_len, tok_dist, sel, lfreqs, dfreqs, enc_ends,
@@ -452,6 +444,15 @@ def _render_pack_unit_fixed(qbytes, tl, td, se, out_bytes: int,
     arithmetically. `demote` turns on the cost-model match demotion
     (Z_FIXED); the L1 quick path emits matches unconditionally, as
     zlib-ng's deflate_quick does (deflate_quick.c:47-130)."""
+    with span("stage2.render", tl.device):
+        fields = _render_unit_fixed(qbytes, tl, td, se, demote)
+    with span("stage2.pack", tl.device):
+        return hierarchical_pack(*fields, out_bytes)
+
+
+def _render_unit_fixed(qbytes, tl, td, se, demote: bool):
+    """The render of _render_pack_unit_fixed: (lo, hi, nbits) token
+    fields."""
     tl = tl.to(I32)
     td = td.to(I32)
     U, N = tl.shape
@@ -498,7 +499,7 @@ def _render_pack_unit_fixed(qbytes, tl, td, se, out_bytes: int,
     nb = torch.where(se, n0 + le + dn + de, 0).to(I32)
     lo = torch.where(se, lo, 0)
     hi = torch.where(se, hi, 0)
-    return hierarchical_pack(lo, hi, nb, out_bytes)
+    return lo, hi, nb
 
 
 def _stage2_fixed(flat, tok_len, tok_dist, sel, lane_block: int,
@@ -627,41 +628,53 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
     """Raw DEFLATE payload of `buf` (uint8, >= 1 byte) on `device`.
     `tune` (any object with chain/lazy/max_lazy/nice/good) overrides the
     level's match-engine knobs; `max_dist` bounds match distances. Levels
-    below 1 and above 9 take L1's and L9's engine."""
+    below 1 and above 9 take L1's and L9's engine. The call's spans and
+    counters fill stage_seconds."""
     dev = _device(device)
-    lc = level_config_from(tune) if tune is not None \
-        else LEVELS[max(1, min(9, level))]
-    s1_strategy = strategy if strategy in (1, 2, 3) else 0
-    # fixed-tree quick path (deflate_quick, L1 in zlib-ng's
-    # configuration_table, deflate.c:142-152): Z_FIXED at any level, and
-    # L1 with the default strategy
-    quick = strategy == Z_FIXED or (level == 1 and strategy == 0)
-    n = buf.size
-    # lane geometry by input size: minimize processed positions (history
-    # prefix + zero tail), ties to bigger lanes
-    lane_block = min(LANE_BLOCKS,
-                     key=lambda lb: (-(-n // lb) * (lb + LANE_HIST), -lb))
-    qpl = lane_block // UNIT
-    max_lanes = max(1, GROUP_BYTES // lane_block)
-    nblocks = max(1, -(-n // lane_block))
+    with _trace_mod.call("compress", _publish):
+        return _deflate_payload(buf, level, strategy, dictionary, tune,
+                                max_dist, dev)
 
-    # virtual buffer with 32K zero/dict prefix so every lane slices uniformly
-    d = np.frombuffer(memoryview(bytes(dictionary)),
-                      np.uint8)[-min(LANE_HIST, max_dist):] \
-        if dictionary else np.zeros(0, np.uint8)
-    prefix = np.concatenate([np.zeros(LANE_HIST - d.size, np.uint8), d])
-    tail_pad = np.zeros(nblocks * lane_block - n, np.uint8)
-    vbuf = np.concatenate([prefix, buf, tail_pad])
-    first_hist_valid = LANE_HIST - d.size
-    # one upload of the whole buffer (pinned + non-blocking on a card)
-    host = torch.from_numpy(vbuf)
-    if dev.type == "cuda":
-        vbuf_d = host.pin_memory().to(dev, non_blocking=True)
-    else:
-        vbuf_d = host
+
+def _deflate_payload(buf, level, strategy, dictionary, tune, max_dist,
+                     dev) -> bytes:
+    """deflate_payload_cuda's body: the frame's set-up, then the lane
+    groups' software pipeline (stage 1 and stage 2 on the device, the
+    stitch on the host)."""
+    with span("frame"):
+        lc = level_config_from(tune) if tune is not None \
+            else LEVELS[max(1, min(9, level))]
+        s1_strategy = strategy if strategy in (1, 2, 3) else 0
+        # fixed-tree quick path (deflate_quick, L1 in zlib-ng's
+        # configuration_table, deflate.c:142-152): Z_FIXED at any level,
+        # and L1 with the default strategy
+        quick = strategy == Z_FIXED or (level == 1 and strategy == 0)
+        n = buf.size
+        # lane geometry by input size: minimize processed positions
+        # (history prefix + zero tail), ties to bigger lanes
+        lane_block = min(LANE_BLOCKS, key=lambda lb: (
+            -(-n // lb) * (lb + LANE_HIST), -lb))
+        qpl = lane_block // UNIT
+        max_lanes = max(1, GROUP_BYTES // lane_block)
+        nblocks = max(1, -(-n // lane_block))
+
+        # virtual buffer with 32K zero/dict prefix so every lane slices
+        # uniformly
+        d = np.frombuffer(memoryview(bytes(dictionary)),
+                          np.uint8)[-min(LANE_HIST, max_dist):] \
+            if dictionary else np.zeros(0, np.uint8)
+        prefix = np.concatenate([np.zeros(LANE_HIST - d.size, np.uint8), d])
+        tail_pad = np.zeros(nblocks * lane_block - n, np.uint8)
+        vbuf = np.concatenate([prefix, buf, tail_pad])
+        first_hist_valid = LANE_HIST - d.size
+        # one upload of the whole buffer (pinned + non-blocking on a card)
+        host = torch.from_numpy(vbuf)
+        if dev.type == "cuda":
+            vbuf_d = host.pin_memory().to(dev, non_blocking=True)
+        else:
+            vbuf_d = host
 
     stitch = _BitStitcher()
-    clock = _StageClock(dev)
 
     def _group_flat(g0: int, B: int) -> torch.Tensor:
         # the group's lanes plus history, zero-padded to the upload bucket
@@ -672,22 +685,21 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
             flat = torch.cat([flat, flat.new_zeros((Bup - B) * lane_block)])
         return flat
 
-    @clock.stage("stage1")
     def _dispatch_stage1(g0: int) -> dict:
         g1 = min(g0 + max_lanes, nblocks)
         B = g1 - g0
         Bpad = 1 << (B - 1).bit_length()
-        flat_d = _group_flat(g0, B)
-        enc_ends = np.full(Bpad, LANE_HIST, np.int32)
-        hist_valids = np.zeros(Bpad, np.int32)
-        for i, bi in enumerate(range(g0, g1)):
-            enc_ends[i] = LANE_HIST + min(lane_block, n - bi * lane_block)
-            hist_valids[i] = first_hist_valid if bi == 0 else 0
-        enc_ends_d = torch.from_numpy(enc_ends).to(dev)
-        with span("deflate stage1 dispatch lanes[%d:%d] Bpad=%d", g0, g1,
-                  Bpad):
+        with span("stage1", dev, group=g0 // max_lanes):
+            flat_d = _group_flat(g0, B)
+            enc_ends = np.full(Bpad, LANE_HIST, np.int32)
+            hist_valids = np.zeros(Bpad, np.int32)
+            for i, bi in enumerate(range(g0, g1)):
+                enc_ends[i] = LANE_HIST + min(lane_block,
+                                              n - bi * lane_block)
+                hist_valids[i] = first_hist_valid if bi == 0 else 0
+            enc_ends_d = upload(enc_ends, dev)
             toks, a_d, b_d = _stage1(
-                flat_d, enc_ends_d, torch.from_numpy(hist_valids).to(dev),
+                flat_d, enc_ends_d, upload(hist_valids, dev),
                 lane_block, lc.chain, lc.lazy, lc.max_lazy, lc.nice,
                 s1_strategy, lc.good, max_dist=max_dist, quick=quick)
         # the quick product is each unit's static body bits, not counts
@@ -728,9 +740,9 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
         unit is its own static block. L1 compacts the packed units at
         host-known offsets (no demotion, so the bits are exact); Z_FIXED
         demotes matches and fetches the buckets with the device's bits."""
-        g0, g1, Bpad = gm["g0"], gm["g1"], gm["Bpad"]
+        Bpad = gm["Bpad"]
         toks, flat_d = gm["toks"], gm["flat_d"]
-        fb = gm["fb_d"].cpu().numpy().astype(np.int64)   # (Bpad, qpl)
+        fb = fetch(gm["fb_d"]).astype(np.int64)          # (Bpad, qpl)
         unit_lens = _unit_lens(gm)
         # a unit is stored when its raw form beats its static block
         coded = (unit_lens > 0) & ~(42 + 8 * unit_lens < fb + 10)
@@ -744,19 +756,15 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
             args = (flat_d, toks["tok_len"], toks["tok_dist"], toks["sel"],
                     lane_block, out_bytes)
             if strategy == Z_FIXED:
-                with span("deflate stage2-fixed dispatch lanes[%d:%d] "
-                          "out=%d", g0, g1, out_bytes):
-                    gm["packed_d"], gm["totals_d"] = _stage2_fixed(
-                        *args, demote=True)
+                gm["packed_d"], gm["totals_d"] = _stage2_fixed(
+                    *args, demote=True)
             else:
                 nbytes = np.where(coded, (fb + 7) >> 3, 0)
                 gm["unit_off"] = (np.cumsum(nbytes) - nbytes.reshape(-1)) \
                     .reshape(Bpad, qpl)
                 gm["unit_bits"] = fb
-                with span("deflate stage2-quick-compact lanes[%d:%d] "
-                          "out=%d bytes=%d", g0, g1, out_bytes,
-                          int(nbytes.sum())):
-                    packed, _ = _stage2_fixed(*args, demote=False)
+                packed, _ = _stage2_fixed(*args, demote=False)
+                with span("stage2.pack", dev):
                     gm["flat_packed_d"] = _compact_units(
                         [packed.reshape(Bpad * qpl, out_bytes)],
                         nbytes.reshape(-1, 1))
@@ -774,10 +782,9 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                                 toks["sel"], gm["lfreqs_d"], gm["dfreqs_d"],
                                 gm["enc_ends_d"], lane_block, ob)
 
-        with span("deflate stage2-auto dispatch lanes[%d:%d] out=%d",
-                  g0, g1, out_bytes):
-            body, hdr, meta = run(out_bytes)
-        meta_np = meta.cpu().numpy()                   # (Bpad, qpl, 3)
+        count("stage2.groups")
+        body, hdr, meta = run(out_bytes)
+        meta_np = fetch(meta)                          # (Bpad, qpl, 3)
         btype = meta_np[:, :, 2] & 3
         nonstored = []
         for i, bi in enumerate(range(g0, g1)):
@@ -789,12 +796,14 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
         # estimated bucket, redo the group at the exact fit
         need_bits = max((int(meta_np[i, q, 0]) for i, q in nonstored),
                         default=0)
-        if need_bits > (out_bytes - 8) * 8:
+        redo = need_bits > (out_bytes - 8) * 8
+        count("stage2.redispatch", int(redo))
+        if redo:
             out_bytes = next((ob for ob in OUT_BUCKETS
                               if need_bits <= (ob - 8) * 8), OUT_BUCKETS[-1])
             trace("stage2-auto bucket overflow: redispatch at %d", out_bytes)
             body, hdr, meta = run(out_bytes)
-            meta_np = meta.cpu().numpy()
+            meta_np = fetch(meta)
         gm["flat_packed_d"] = None
         if nonstored:
             # exact per-unit byte offsets from the fetched bit counts
@@ -818,19 +827,20 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                     offs[u, 1] = cur
                     nbytes[u, 1] = (body_bits + 7) >> 3
                     cur += nbytes[u, 1]
-            gm["flat_packed_d"] = _compact_units(
-                [hdr.reshape(Bpad * qpl, -1), body.reshape(Bpad * qpl, -1)],
-                nbytes)
+            with span("stage2.pack", dev):
+                gm["flat_packed_d"] = _compact_units(
+                    [hdr.reshape(Bpad * qpl, -1),
+                     body.reshape(Bpad * qpl, -1)], nbytes)
             gm["unit_off"] = offs.reshape(Bpad, qpl, 2)
         gm["meta"] = meta_np
         del gm["toks"], gm["flat_d"], gm["lfreqs_d"], gm["dfreqs_d"]
 
-    @clock.stage("stage2")
     def _dispatch_stage2(gm: dict) -> None:
-        if quick:
-            _dispatch_stage2_quick(gm)
-        else:
-            _dispatch_stage2_auto(gm)
+        with span("stage2", dev, group=gm["g0"] // max_lanes):
+            if quick:
+                _dispatch_stage2_quick(gm)
+            else:
+                _dispatch_stage2_auto(gm)
 
     def _append_stored(bi: int, q: int, ul: int, blen: int) -> None:
         """A stored block of unit q of lane bi, straight from the input."""
@@ -842,12 +852,12 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
         stitch.append(vbuf[off:off + ul], ul * 8)
 
     def _stitch_quick(gm: dict) -> None:
-        flat_pk = gm["flat_packed_d"].cpu().numpy() \
+        flat_pk = fetch(gm["flat_packed_d"]) \
             if gm["flat_packed_d"] is not None else None
         packed = totals = None
         if gm["packed_d"] is not None:
-            packed = gm["packed_d"].cpu().numpy()      # (Bpad, qpl, out)
-            totals = gm["totals_d"].cpu().numpy()      # (Bpad, qpl)
+            packed = fetch(gm["packed_d"])             # (Bpad, qpl, out)
+            totals = fetch(gm["totals_d"])             # (Bpad, qpl)
         unit_lens, coded = gm["unit_lens"], gm["coded"]
         # BFINAL on the stream's last unit's 3-bit header when it is coded
         last = None
@@ -879,7 +889,7 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
 
     def _stitch_auto(gm: dict) -> None:
         meta = gm["meta"]
-        flat_pk = gm["flat_packed_d"].cpu().numpy() \
+        flat_pk = fetch(gm["flat_packed_d"]) \
             if gm["flat_packed_d"] is not None else None
         offs = gm.get("unit_off")
         g0, g1 = gm["g0"], gm["g1"]
@@ -937,12 +947,12 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
                               " OVERRUN" if over else "")
         gm.pop("flat_packed_d", None)
 
-    @clock.stage("stitch", on_device=False)
     def _stitch(gm: dict) -> None:
-        if quick:
-            _stitch_quick(gm)
-        else:
-            _stitch_auto(gm)
+        with span("stitch", group=gm["g0"] // max_lanes):
+            if quick:
+                _stitch_quick(gm)
+            else:
+                _stitch_auto(gm)
 
     # software pipeline over lane groups: stage 1 of the next groups is
     # queued before stage 2 and the stitch of the earlier ones
@@ -961,7 +971,6 @@ def deflate_payload_cuda(buf: np.ndarray, level: int = 6,
         done.append(gm)
     for gm in done:
         _stitch(gm)
-    clock.publish()
     return stitch.getvalue()
 
 
@@ -983,14 +992,25 @@ def compress_cuda(data, level: int = 6, wbits: int = 15,
     if level == 0 or buf.size < 1024:
         return compress_host(buf, level=level, wbits=wbits,
                              strategy=strategy, dictionary=dictionary)
-    payload = deflate_payload_cuda(buf, level, strategy, dictionary, tune,
-                                   max_dist=effective_window(wbits),
-                                   device=device)
-    if wbits < 0:
-        return payload
-    if wbits > 15:
-        return (H.build_gzip_header(level=level) + payload
-                + H.build_gzip_trailer(crc32(buf), buf.size))
-    dictid = adler32(dictionary) if dictionary is not None else None
-    head = H.build_zlib_header(wbits=max(wbits, 9), level=level, dictid=dictid)
-    return head + payload + H.build_zlib_trailer(adler32(buf))
+    with _trace_mod.call("compress", _publish):
+        payload = deflate_payload_cuda(buf, level, strategy, dictionary,
+                                       tune, max_dist=effective_window(wbits),
+                                       device=device)
+        with span("frame"):
+            if wbits < 0:
+                return payload
+            if wbits > 15:
+                return (H.build_gzip_header(level=level) + payload
+                        + H.build_gzip_trailer(crc32(buf), buf.size))
+            dictid = adler32(dictionary) if dictionary is not None else None
+            head = H.build_zlib_header(wbits=max(wbits, 9), level=level,
+                                       dictid=dictid)
+            return head + payload + H.build_zlib_trailer(adler32(buf))
+
+
+def _publish(call) -> None:
+    """Refill stage_seconds from a compress call's record."""
+    stage_seconds.clear()
+    stage_seconds.update(stage1=0.0, stage2=0.0, stitch=0.0)
+    stage_seconds.update(call.totals())
+    stage_seconds.update({k + ".n": v for k, v in call.counts.items()})

@@ -25,6 +25,7 @@ import torch
 from ..format.constants import (
     BL_ORDER, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
 )
+from ..trace import item, upload
 
 I32 = torch.int32
 
@@ -49,7 +50,10 @@ def _phase1_scan(a: torch.Tensor, m: torch.Tensor, n: int) -> torch.Tensor:
         av_r = a[rows, r.clamp(max=n - 1)]
         use_r = (s >= m) | ((r < t) & (av_r < av_s))
         child = torch.where(use_r, av_r, av_s)
-        a[rows, torch.where(use_r & live, r, spare)] = t
+        # a Python scalar assigned through tensor indices is copied to
+        # the device from pageable memory first: a wait, made here
+        a[rows, torch.where(use_r & live, r, spare)] = upload(
+            torch.tensor(t, dtype=a.dtype), dev)
         return child, s + (~use_r).long(), r + use_r.long()
 
     for t in range(n - 1):
@@ -123,7 +127,7 @@ def huff_lengths(freqs: torch.Tensor, max_bits: int) -> torch.Tensor:
     shifts = max_bits - torch.arange(max_bits + 1, dtype=I32, device=dev)
     kraft = (bl << shifts).sum(1).to(I32)
     excess = kraft - (1 << max_bits)
-    steps = int(excess.max()) if G else 0
+    steps = item(excess.max()) if G else 0
     cand = torch.arange(max_bits + 1, dtype=I32, device=dev)
     for _ in range(steps):
         active = excess > 0
@@ -251,7 +255,8 @@ def _rle_scan(v: torch.Tensor, L: torch.Tensor):
         o2 = o1 + n1.long()
         at = torch.where(n2, o2, spare)
         syms[rows, at] = curlen
-        extras[rows, at] = -1
+        extras[rows, at] = upload(torch.tensor(-1, dtype=extras.dtype),
+                                  dev)
         cur = torch.where(do, o2 + n2.long(), cur)
 
         prevlen = torch.where(do, curlen, prevlen)
@@ -295,11 +300,11 @@ def dyn_header(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
         1, torch.where(live, syms, 19).long(), torch.ones_like(syms))[:, :19]
     cl_len, cl_code = huff_table(cl_freqs, MAX_BL_BITS)
 
-    perm = cl_len[:, torch.as_tensor(BL_ORDER, dtype=torch.int64, device=dev)]
+    perm = cl_len[:, upload(np.asarray(BL_ORDER, np.int64), dev)]
     i19 = torch.arange(19, dtype=I32, device=dev)
     hclen = torch.clamp(torch.where(perm > 0, i19 + 1, 0).max(1).values, min=4)
 
-    ext_tab = torch.as_tensor(_CL_EXTRA_TAB, device=dev)
+    ext_tab = upload(_CL_EXTRA_TAB, dev)
     lo = torch.zeros((G, HDR_SLOTS), dtype=torch.int64, device=dev)
     nb = torch.zeros((G, HDR_SLOTS), dtype=I32, device=dev)
     lo[:, 0] = btype_bits

@@ -33,7 +33,7 @@ end, which is then cut off.
 from __future__ import annotations
 
 import functools
-import time
+import itertools
 
 import numpy as np
 import torch
@@ -45,7 +45,8 @@ from ..stream import inflate_serial as _serial
 from ..stream.inflate_serial import (
     _S_BLOCK_HEADER, _S_HUFF, _S_STORED, NEED_INPUT, RawInflater,
 )
-from ..trace import trace
+from .. import trace as _trace
+from ..trace import count, fetch, item, span, trace, upload
 from .deflate import _device
 from .parse import parse_select
 
@@ -77,14 +78,35 @@ _DEVICE_SINGLE_MAX = 1 << 20
 # Routing/result counters, counted where the reference counts them
 stats = {"device_ok": 0, "fallback": 0, "host_routed": 0, "mesh_ok": 0,
          "error": 0}
-# the last device decode: waves (host passes over the live segments),
-# phase A dispatches (one per lane bucket per wave, one K2 launch each on
-# the card), phase B dispatches, and host-clock seconds of phase A (upload,
+# the last device decode, filled from its spans and counters (`trace.py`)
+# when it closes: waves (host passes over the live segments), phase A
+# dispatches (one per lane bucket per wave, one K2 launch each on the
+# card), phase B dispatches, host-clock seconds of phase A (upload,
 # dispatch and the fetch that waits for it), of phase B (the same) and of
-# the whole wave engine; and why it gave the stream up to the serial
-# decoder (None when it did not)
+# the whole wave engine (`total_s`), and why it gave the stream up to the
+# serial decoder (None when it did not). Beside them, every other span as
+# `<name>_s` (phase A's parts `phase_a.luts_s`, `phase_a.steps_s`,
+# `phase_a.k2_s`, `phase_a.compact_s` in device time on a card; the waits
+# `phase_a.fetch_s`, `phase_b.fetch_s`, `decode.fetch_s` on the host's
+# clock) and every counter under its name: `syncs`, `sync_bytes`,
+# `phase_a_lanes` (real lanes dispatched), `phase_a_retries` (lanes sent
+# again in a bigger bucket), `k2_lanes` and `k2_positions` (B and B * N of
+# each phase A walk, summed)
 decode_stats = {"waves": 0, "phase_a": 0, "phase_b": 0, "phase_a_s": 0.0,
                 "phase_b_s": 0.0, "total_s": 0.0, "fallback_cause": None}
+_COUNTERS = ("waves", "phase_a", "phase_b", "phase_a_lanes",
+             "phase_a_retries", "k2_lanes", "k2_positions")
+
+
+def _publish(call) -> None:
+    """Refill decode_stats from a decode call's record."""
+    decode_stats.clear()
+    decode_stats.update(dict.fromkeys(_COUNTERS, 0), phase_a_s=0.0,
+                        phase_b_s=0.0)
+    decode_stats.update({k + "_s": v for k, v in call.totals().items()
+                         if k != call.name})
+    decode_stats.update(call.counts)
+    decode_stats.update(total_s=call.spans[0].host_s, fallback_cause=None)
 
 
 class _Fallback(Exception):
@@ -93,8 +115,8 @@ class _Fallback(Exception):
 
 @functools.lru_cache(maxsize=8)
 def _code_bases(dev: str) -> tuple[torch.Tensor, torch.Tensor]:
-    return (torch.from_numpy(LENGTH_BASE.astype(np.int32)).to(dev),
-            torch.from_numpy(DIST_BASE.astype(np.int32)).to(dev))
+    return (upload(LENGTH_BASE.astype(np.int32), dev),
+            upload(DIST_BASE.astype(np.int32), dev))
 
 
 # ---------------------------------------------------------------------------
@@ -158,14 +180,24 @@ def _phase_a_steps(comp, byte_starts, lit_tabs, dist_tabs, start_bits,
     code (<= 15 bits) plus length extras (<= 5) from any bit offset, and
     the distance code and extras are read through two word gathers."""
     dev = comp.device
-    B = byte_starts.shape[0]
+    with span("phase_a.luts", dev):
+        lit_luts = _build_flat_luts(lit_tabs, lit_masks, lit_cap)
+        dist_luts = _build_flat_luts(dist_tabs, dist_masks, dist_cap)
+    with span("phase_a.steps", dev):
+        return _decode_every_bit(comp, byte_starts, lit_luts, dist_luts,
+                                 start_bits, lit_masks, dist_masks, cb)
+
+
+def _decode_every_bit(comp, byte_starts, lit_luts, dist_luts, start_bits,
+                      lit_masks, dist_masks, cb):
+    """_phase_a_steps after the LUT build: one token decoded at every bit
+    position of every lane."""
+    dev = comp.device
     CB = cb
     C = comp.shape[0]
     lb_idx = (byte_starts.long().clamp(0, C - CB)[:, None]
               + torch.arange(CB, dtype=I64, device=dev)[None, :])
     lane_bytes = comp[lb_idx]
-    lit_luts = _build_flat_luts(lit_tabs, lit_masks, lit_cap)
-    dist_luts = _build_flat_luts(dist_tabs, dist_masks, dist_cap)
     N = CB * 8
     LB, DB = _code_bases(str(dev))
 
@@ -242,9 +274,20 @@ def _phase_a(comp, byte_starts, lit_tabs, dist_tabs, start_bits, lit_masks,
         comp, byte_starts, lit_tabs, dist_tabs, start_bits, lit_masks,
         dist_masks, cb, lit_cap, dist_cap)
     B, N = step.shape
-    T_CAP = N // 4
-    sel = parse_select(step, bounds)
+    dev = comp.device
+    with span("phase_a.k2", dev):
+        sel = parse_select(step, bounds)
+    count("k2_lanes", B)
+    count("k2_positions", B * N)
+    with span("phase_a.compact", dev):
+        return _compact_tokens(sel, kind, packed, tend)
 
+
+def _compact_tokens(sel, kind, packed, tend):
+    """The rest of _phase_a after the walk: its selected tokens in order,
+    and each lane's first EOB/invalid token."""
+    B, N = sel.shape
+    T_CAP = N // 4
     # in-order compaction: rank-scatter into fixed-size token arrays; the
     # reference drops ranks at or past T_CAP, here they land in a scratch
     # column T_CAP that is cut off
@@ -316,7 +359,7 @@ def _phase_b_multi(kinds, auxs, olens, comp, dictv, dict_lens, wsize: int,
     # pointer doubling to the fixpoint: one convergence read per round
     while True:
         nxt = ptr.gather(1, ptr)
-        if not bool((nxt != ptr).any()):
+        if not item((nxt != ptr).any()):
             break
         ptr = nxt
     out = val.gather(1, ptr).to(torch.uint8)
@@ -466,7 +509,7 @@ def _accept_tokens(cur: _Cursor, kind_row, aux_row, ntok, spec_idx,
 
 
 def _upload(dev: torch.device, *arrays):
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    return [upload(a, dev) for a in arrays]
 
 
 def _phase_a_default(comp_j, byte_starts, lits, dists, start_bits,
@@ -477,12 +520,12 @@ def _phase_a_default(comp_j, byte_starts, lits, dists, start_bits,
     tk, ta, nt, si, sk, se = _phase_a(
         comp_j, *_upload(comp_j.device, byte_starts, lits, dists, start_bits,
                          lit_masks, dist_masks), cb, lit_cap, dist_cap)
-    nt_n, si_n, sk_n, se_n = torch.stack([nt, si, sk, se]).cpu().numpy()
+    nt_n, si_n, sk_n, se_n = fetch(torch.stack([nt, si, sk, se]))
     used = np.where((si_n < nt_n) & (sk_n == K_EOB), si_n, 0)
     mx = int(used.max()) if used.size else 0
     if mx > 0:
-        tk_n = tk[:, :mx].cpu().numpy()
-        ta_n = ta[:, :mx].cpu().numpy()
+        tk_n = fetch(tk[:, :mx])
+        ta_n = fetch(ta[:, :mx])
     else:
         B = nt_n.shape[0]
         tk_n = np.zeros((B, 0), np.int8)
@@ -503,19 +546,15 @@ def _decode_segments(comp: bytes, seg_bounds, dictionary: bytes | None,
     None is one device. phase_b_fn receives batched (S, T) token arrays
     padded to one (t_cap, out_cap) and returns (outs (S, out_cap - _DPAD)
     numpy, bad (S,))."""
-    t_all = time.perf_counter()
-    decode_stats.update(waves=0, phase_a=0, phase_b=0, phase_a_s=0.0,
-                        phase_b_s=0.0, total_s=0.0, fallback_cause=None)
     try:
-        return _decode_waves(comp, seg_bounds, dictionary, wsize,
-                             phase_a_fn or _phase_a_default,
-                             phase_b_fn or _phase_b_default,
-                             torch.device(device))
+        with _trace.call("decode", _publish):
+            return _decode_waves(comp, seg_bounds, dictionary, wsize,
+                                 phase_a_fn or _phase_a_default,
+                                 phase_b_fn or _phase_b_default,
+                                 torch.device(device))
     except (_Fallback, InflateError) as e:
         decode_stats["fallback_cause"] = str(e)
         raise
-    finally:
-        decode_stats["total_s"] = time.perf_counter() - t_all
 
 
 def _decode_waves(comp, seg_bounds, dictionary, wsize, phase_a_fn,
@@ -540,9 +579,9 @@ def _decode_waves(comp, seg_bounds, dictionary, wsize, phase_a_fn,
     comp_cap = max(2048, 1 << (len(comp) - 1).bit_length()) if comp else 2048
     comp_pad = np.zeros(comp_cap, np.uint8)
     comp_pad[:len(comp)] = comp_np
-    comp_j = torch.from_numpy(comp_pad).to(dev)
+    comp_j = upload(comp_pad, dev)
 
-    while True:
+    for wave in itertools.count():
         # host: headers and stored blocks; collect lanes needing the device
         pend = []
         for cur in cursors:
@@ -553,7 +592,7 @@ def _decode_waves(comp, seg_bounds, dictionary, wsize, phase_a_fn,
                 pend.append((cur, hdr))
         if not pend:
             break
-        decode_stats["waves"] += 1
+        count("waves")
 
         # batch by bucket size
         by_bucket = {}
@@ -586,12 +625,13 @@ def _decode_waves(comp, seg_bounds, dictionary, wsize, phase_a_fn,
                 start_bits[i] = sym_bit - 8 * base_byte
                 real = 8 * (min(len(comp) - base_byte, cb))
                 meta.append((cur, 8 * base_byte, real))
-            t0 = time.perf_counter()
-            tk, ta, nt, si_, sk, se = phase_a_fn(
-                comp_j, byte_starts, lits, dists, start_bits,
-                lit_masks, dist_masks, cb, lit_cap, dist_cap)
-            decode_stats["phase_a_s"] += time.perf_counter() - t0
-            decode_stats["phase_a"] += 1
+            with span("phase_a", wave=wave, cb=cb):
+                tk, ta, nt, si_, sk, se = phase_a_fn(
+                    comp_j, byte_starts, lits, dists, start_bits,
+                    lit_masks, dist_masks, cb, lit_cap, dist_cap)
+            count("phase_a")
+            count("phase_a_lanes", B)
+            retries = 0
             for i, (cur, base_bit, real_bits) in enumerate(meta):
                 ok = _accept_tokens(cur, tk[i], ta[i], nt[i], si_[i], sk[i],
                                     se[i], 2 * cb, base_bit, real_bits)
@@ -600,13 +640,15 @@ def _decode_waves(comp, seg_bounds, dictionary, wsize, phase_a_fn,
                             or _CB_BUCKETS[cur.bucket] >= comp_cap:
                         raise _Fallback("block larger than the largest lane")
                     cur.bucket += 1
+                    retries += 1
+            count("phase_a_retries", retries)
 
     # phase B
     dict_bytes = (dictionary or b"")[-32768:]
     dictv = np.zeros(1 << 15, np.uint8)
     if dict_bytes:
         dictv[-len(dict_bytes):] = np.frombuffer(dict_bytes, np.uint8)
-    dictv_j = torch.from_numpy(dictv).to(dev)
+    dictv_j = upload(dictv, dev)
 
     return _phase_b_batched(cursors, dict_bytes, comp_j, dictv_j, wsize,
                             phase_b_fn)
@@ -619,7 +661,7 @@ def _phase_b_default(kinds, auxs, olens, comp_j, dictv_j, dict_lens, wsize,
     k, a, o, dl = _upload(comp_j.device, kinds, auxs, olens, dict_lens)
     out, bad = _phase_b_multi(k, a, o, comp_j, dictv_j, dl, int(wsize),
                               out_cap)
-    return out[:, _DPAD:].cpu().numpy(), bad.cpu().numpy()
+    return fetch(out[:, _DPAD:]), fetch(bad)
 
 
 def _phase_b_batched(cursors, dict_bytes, comp_j, dictv_j, wsize,
@@ -646,11 +688,10 @@ def _phase_b_batched(cursors, dict_bytes, comp_j, dictv_j, wsize,
             auxs[j, :len(kind)] = np.concatenate([t[1] for t in cur.toks])
             olens[j, :len(kind)] = np.concatenate([t[2] for t in cur.toks])
             dlens[j] = len(dict_bytes) if si == 0 else 0
-        t0 = time.perf_counter()
-        outs, bads = phase_b_fn(kinds, auxs, olens, comp_j, dictv_j, dlens,
-                                wsize, out_cap)
-        decode_stats["phase_b_s"] += time.perf_counter() - t0
-        decode_stats["phase_b"] += 1
+        with span("phase_b"):
+            outs, bads = phase_b_fn(kinds, auxs, olens, comp_j, dictv_j,
+                                    dlens, wsize, out_cap)
+        count("phase_b")
         if bool(np.asarray(bads).any()):
             raise _Fallback("distance before the window or dictionary")
         # contract: outs rows are numpy, starting at the data (the _DPAD

@@ -21,6 +21,7 @@ import torch
 
 from ..format.constants import MAX_MATCH, MIN_MATCH, WINDOW_SIZE
 from ..lz77.engine import HASH_MULT, TOO_FAR
+from ..trace import nonzero
 from .probe import NEG, _ctz_bytes32, probe_best
 
 # probe width in 4-byte words (16-byte probes), as in the reference
@@ -123,7 +124,7 @@ def _wide_extension(w4, need, best_cand, CX: int):
     """Exact match length of the needy rows: 4 * (first differing column)
     + leading equal bytes of that column's xor word (4 * CX + 4 when all
     CX columns agree), as lz77_jax.py's batched wide_body computes it."""
-    bi, pi = need.nonzero(as_tuple=True)
+    bi, pi = nonzero(need)
     cols = 4 * torch.arange(CX, dtype=torch.int64, device=w4.device)
     out = torch.empty(bi.shape[0], dtype=torch.int32, device=w4.device)
     for lo in range(0, bi.shape[0], _EXT_ROWS):
@@ -163,7 +164,7 @@ def deep_probes(w2_s, h_sorted, pos_s, hv, best_score, best_cand_s,
                           (best_score + (pos_s - best_cand_s)) >> 20, 0)
     need = (has_deeper & (cur_l16 < max(4, min(good, 16)))
             & (pos_s >= enc_start) & (pos_s < enc_end))
-    bi, si = need.nonzero(as_tuple=True)
+    bi, si = nonzero(need)
     ks = torch.arange(kd, chain + 1, dtype=torch.int64, device=dev)
     rows = max(1, _DEEP_PAIRS // ks.numel())
     deep_stats["rows"] += int(bi.numel())

@@ -52,6 +52,7 @@ from ..ops.lz77 import (
 )
 from ..ops.parse import parse_select_encode
 from ..stream.deflate import LEVELS
+from ..trace import fetch, upload
 
 I32 = torch.int32
 I64 = torch.int64
@@ -88,7 +89,7 @@ class Shards:
         if arr.dtype == np.uint32:
             arr = arr.astype(np.int64)
         per = arr.shape[0] // self.count
-        return [torch.from_numpy(arr[g * per:(g + 1) * per]).to(d)
+        return [upload(arr[g * per:(g + 1) * per], d)
                 for g, d in self.local()]
 
     def gather(self, parts: list[torch.Tensor]) -> np.ndarray:
@@ -96,14 +97,14 @@ class Shards:
         concatenated on axis 0 in shard order, as a host array on every
         process: the reference's all_gather."""
         if self.group is None:
-            return torch.cat([p.cpu() for p in parts]).numpy()
+            return np.concatenate([fetch(p) for p in parts])
         import torch.distributed as dist
         nccl = dist.get_backend(self.group) == "nccl"
         comm = self.devices[0] if nccl else torch.device("cpu")
         x = torch.cat([p.to(comm) for p in parts])
         outs = [torch.empty_like(x) for _ in range(self.world)]
         dist.all_gather(outs, x, group=self.group)
-        return torch.cat(outs).cpu().numpy()
+        return fetch(torch.cat(outs))
 
 
 def visible_shards(devices=None, group=None) -> Shards:
