@@ -673,11 +673,12 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     with the CPU port (1 MiB prefix, whole corpus) and with the
     reference's pinned digest."""
     from zlibng_tpu_torch import compress_cuda
-    from zlibng_tpu_torch.ops import deflate, parse, probe
+    from zlibng_tpu_torch.ops import deflate, huffman, parse, probe
     name = _name(level, strategy)
     kw = dict(strategy=strategy)
     probe.launches = 0
     parse.launches = 0
+    huffman.launches = 0
     t0 = time.perf_counter()
     out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
@@ -685,6 +686,11 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     launches = {"K1": probe.launches, "K2": parse.launches}
     if launches["K1"] == 0 or launches["K2"] == 0:
         raise AssertionError(f"{name}: main path missed a kernel {launches}")
+    # stage 2 auto builds its trees in the Huffman kernel; the quick path
+    # (L1, Z_FIXED) builds none
+    huf = huffman.launches
+    if (huf > 0) != (level > 1 and strategy != 4):
+        raise AssertionError(f"{name}: {huf} Huffman kernel launches")
     if zlib.decompress(out) != data:
         raise AssertionError(f"{name}: zlib round trip failed")
     digest = (len(out), hashlib.sha256(out).hexdigest()[:16])
@@ -711,12 +717,67 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
           f"(ratio {len(out) / len(data):.4f}, sha256 {digest[1]}, equal to "
           f"compress_tpu's); zlib round trip ok; equal to the CPU port on "
           f"the 1 MiB prefix and on the whole corpus ({cpu_s:.1f} s on the "
-          f"host); launches {launches}; cold {cold:.3f} s, warm {warm:.3f} s "
+          f"host); launches {launches}, Huffman {huf}; cold {cold:.3f} s, "
+          f"warm {warm:.3f} s "
           f"= {mbs:.3f} MB/s; warm stages: stage1 {stages['stage1']:.3f} s, "
           f"stage2 {stages['stage2']:.3f} s, stitch {stages['stitch']:.3f} s",
           flush=True)
-    return dict(level=level, launches=launches, size=len(out),
-                warm_s=warm, mb_s=mbs, stages=stages, stream=out)
+    return dict(level=level, launches=launches, huffman_launches=huf,
+                size=len(out), warm_s=warm, mb_s=mbs, stages=stages,
+                stream=out)
+
+
+def huffman_groups(data: bytes, device="cuda") -> list:
+    """(lfreq, dfreq, btype_bits, outputs) of every lane group's Huffman
+    build (`huff_build`) in an L6 compress_cuda of data on device."""
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import deflate
+    seen = []
+    build = deflate.huff_build
+
+    def record(lfreq, dfreq, btype_bits):
+        out = build(lfreq, dfreq, btype_bits)
+        seen.append((lfreq.clone(), dfreq.clone(), btype_bits, out))
+        return out
+    deflate.huff_build = record
+    try:
+        compress_cuda(data, 6, device=device)
+    finally:
+        deflate.huff_build = build
+    return seen
+
+
+def check_huffman(data: bytes) -> list:
+    """Stage 2's Huffman kernel (csrc/huffman.cu) on the rows of the L6
+    call's first lane group (G = 128) and its tail group (G = 32): every
+    output equal to the plain version (huff_table x 2 + dyn_header) run on
+    the card, and both timed per call between CUDA events."""
+    from zlibng_tpu_torch.ops import huffman
+    groups = huffman_groups(data)
+    rows = []
+    for lf, df, bt, got in (groups[0], groups[-1]):
+        G = lf.shape[0]
+        want = huffman._huff_build_plain(lf, df, bt)
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"Huffman kernel G={G}: output {k} "
+                                     f"differs from the plain version")
+        ms = timed(lambda: huffman._huff_build_cuda(lf, df, bt), 50)
+        dev = device_ms(lambda: huffman._huff_build_cuda(lf, df, bt), 50,
+                        "huff_build")
+        plain_ms = timed(lambda: huffman._huff_build_plain(lf, df, bt), 2)
+        # bytes: the frequencies read once, every output written once
+        nbytes = G * (4 * (286 + 30) + 4 * 2 * (286 + 30)
+                      + 12 * huffman.HDR_SLOTS + 4)
+        b_ms, by = bound(nbytes, 0)
+        dev_ms = sum(dev.values()) if dev else None
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"Huffman kernel G={G}: equal to plain; kernel {ms:.4f} ms per "
+              f"call (device {dev_txt}); plain {plain_ms:.2f} ms; bound "
+              f"{b_ms:.5f} ms ({by}, {nbytes} B)", flush=True)
+        rows.append(dict(G=G, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=by, max_abs_err=0))
+    return rows
 
 
 def deep_path(data: bytes) -> dict:
@@ -1813,6 +1874,7 @@ def main() -> int:
     k2_cases.append(phase("K2 decode check", check_k2_decode,
                           indexed.pop("wave"), k2, indexed["launches"]))
     deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
+    huf_rows = phase("Huffman kernel check", check_huffman, data)
     check_estimate(lanes)
     del lanes, k1_inputs
     t0 = time.perf_counter()
@@ -1863,6 +1925,15 @@ def main() -> int:
             launches=row["launches"], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
+    for row in huf_rows:
+        kernels.append(dict(
+            name=f"huff_build (G = {row['G']})", route="cuda",
+            source=src + "huffman.cu", replaces=None,
+            launches=runs[6, 0]["huffman_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row["device_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke total: {time.perf_counter() - t_all:.1f} s",
           flush=True)

@@ -20,7 +20,7 @@ import zlibng_tpu_torch
 from zlibng_tpu_torch import _build, compress_cuda, decompress_cuda, trace
 from zlibng_tpu_torch.errors import DataError, StreamError
 from zlibng_tpu_torch.ops import (
-    checksum, deflate, inflate, lz77, parse, probe,
+    checksum, deflate, huffman, inflate, lz77, parse, probe,
 )
 from zlibng_tpu_torch.parallel import index, sharded
 
@@ -181,9 +181,10 @@ def test_parse_kernel_matches_plain_on_card(card, n):
 @pytest.mark.parametrize("level", [6, 9])
 def test_compress_on_card_matches_cpu(card, level):
     data = pigz()[:300000]
-    n0 = (probe.launches, parse.launches)
+    n0 = (probe.launches, parse.launches, huffman.launches)
     got = compress_cuda(data, level, device=card)
     assert probe.launches > n0[0] and parse.launches > n0[1]
+    assert huffman.launches > n0[2]          # tables and headers: the kernel
     assert got == compress_cuda(data, level, device="cpu")
     assert zlib.decompress(got) == data
 
@@ -192,9 +193,10 @@ def test_compress_on_card_matches_cpu(card, level):
 @pytest.mark.parametrize("level,strategy", [(1, 0), (6, 4)])
 def test_quick_path_on_card_matches_cpu(card, level, strategy):
     data = pigz()[:300000] + sample("a256", 20000)
-    n0 = (probe.launches, parse.launches)
+    n0 = (probe.launches, parse.launches, huffman.launches)
     got = compress_cuda(data, level, strategy=strategy, device=card)
     assert probe.launches > n0[0] and parse.launches > n0[1]
+    assert huffman.launches == n0[2]         # the quick path builds no tree
     assert got == compress_cuda(data, level, strategy=strategy, device="cpu")
     assert zlib.decompress(got) == data
 

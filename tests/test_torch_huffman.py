@@ -25,47 +25,12 @@ from zlibng_tpu.ops.huffman_jax import dyn_header as ref_dyn_header
 from zlibng_tpu.ops.huffman_jax import huff_table as ref_huff_table
 from zlibng_tpu_torch.ops.huffman import dyn_header, huff_table
 
-from torch_corpus import FIXTURES
-
-
-def _freq_cases(n: int, seed: int):
-    """The generator of tests/test_huffman_jax.py, for alphabet size n."""
-    rng = np.random.default_rng(seed)
-    z = np.zeros(n, np.int64)
-    cases = [z.copy()]
-    o = z.copy(); o[min(65, n - 1)] = 7; cases.append(o)
-    t = z.copy(); t[1] = 1; t[2] = 1; cases.append(t)
-    cases.append(np.full(n, 3, np.int64))
-    fib = z.copy()
-    a, b = 1, 1
-    for i in range(min(25, n)):
-        fib[i] = a
-        a, b = b, a + b
-    cases.append(fib)
-    pw = z.copy()
-    for i in range(min(20, n)):
-        pw[i] = 1 << i                           # forces >15-bit overflow
-    cases.append(pw)
-    for _ in range(60):
-        k = rng.integers(1, n)
-        f = np.zeros(n, np.int64)
-        f[rng.choice(n, k, replace=False)] = rng.integers(1, 10000, k)
-        cases.append(f)
-    for _ in range(30):
-        cases.append(rng.poisson(5, n).astype(np.int64))
-    for _ in range(30):
-        f = (10000 / (1 + np.arange(n)) ** rng.uniform(0.5, 2.0))
-        f = f.astype(np.int64)
-        rng.shuffle(f)
-        cases.append(f)
-    if n == 286:
-        cases.append(np.load(f"{FIXTURES}/oversub_freq.npy"))
-    return np.stack(cases).astype(np.int32)
+from torch_corpus import freq_cases
 
 
 @pytest.mark.parametrize("n,max_bits", [(286, 15), (30, 15), (19, 7)])
 def test_huff_table_matches_reference_and_host(n, max_bits):
-    F = _freq_cases(n, seed=n)
+    F = freq_cases(n, seed=n)
     lens, codes = huff_table(torch.from_numpy(F), max_bits)
     ref = jax.jit(jax.vmap(functools.partial(ref_huff_table,
                                              max_bits=max_bits)))

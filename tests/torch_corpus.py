@@ -64,6 +64,45 @@ def sample(name: str, n: int, seed: int = 0) -> bytes:
     return synthetic(name, n, seed)
 
 
+def freq_cases(n: int, seed: int) -> np.ndarray:
+    """Adversarial and random frequency rows for an alphabet of n symbols
+    (the generator of tests/test_huffman_jax.py): all zero, one symbol, two,
+    all equal, Fibonacci, powers of two (the Kraft restore), random sparse,
+    Poisson and Zipf-like rows, and for n = 286 the oversubscribed
+    fixture. (rows, n) int32."""
+    rng = np.random.default_rng(seed)
+    z = np.zeros(n, np.int64)
+    cases = [z.copy()]
+    o = z.copy(); o[min(65, n - 1)] = 7; cases.append(o)
+    t = z.copy(); t[1] = 1; t[2] = 1; cases.append(t)
+    cases.append(np.full(n, 3, np.int64))
+    fib = z.copy()
+    a, b = 1, 1
+    for i in range(min(25, n)):
+        fib[i] = a
+        a, b = b, a + b
+    cases.append(fib)
+    pw = z.copy()
+    for i in range(min(20, n)):
+        pw[i] = 1 << i                           # forces >15-bit overflow
+    cases.append(pw)
+    for _ in range(60):
+        k = rng.integers(1, n)
+        f = np.zeros(n, np.int64)
+        f[rng.choice(n, k, replace=False)] = rng.integers(1, 10000, k)
+        cases.append(f)
+    for _ in range(30):
+        cases.append(rng.poisson(5, n).astype(np.int64))
+    for _ in range(30):
+        f = (10000 / (1 + np.arange(n)) ** rng.uniform(0.5, 2.0))
+        f = f.astype(np.int64)
+        rng.shuffle(f)
+        cases.append(f)
+    if n == 286:
+        cases.append(np.load(f"{FIXTURES}/oversub_freq.npy"))
+    return np.stack(cases).astype(np.int32)
+
+
 def raw_deflate(data: bytes, level: int = 6, wbits: int = -15,
                 strategy: int = 0, mem: int = 8, zdict: bytes | None = None,
                 ) -> bytes:

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("probe", "parse")
+KERNELS = ("probe", "parse", "huffman")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # C signatures: pointers as c_void_p (a bare int would be cut to 32 bits)
@@ -29,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "probe": ("zng_probe_best", [_P] * 7 + [_I] * 10 + [_P]),
     "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
+    "huffman": ("zng_huff_build", [_P] * 9 + [_I] * 2 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,8 @@ Counterpart of `zlibng_tpu/ops/deflate_tpu.py`:
           chains beyond 64)/extend/lazy rule per lane [ops/lz77.py], the
           parse walk (K2) [ops/parse.py], per-unit symbol histograms
   device: stage 2, auto — block partition (entropy-estimate DP), exact
-          Huffman tables + dynamic headers [ops/huffman.py], block-type
+          Huffman tables + dynamic headers [ops/huffman.py; one kernel
+          per group, csrc/huffman.cu, on the card], block-type
           choice from exact bits, token render + bit pack
           [ops/bitpack_merge.py]; or the fixed-tree quick path (L1 and
           Z_FIXED): each unit's exact static bits from stage 1, static
@@ -35,7 +36,7 @@ from ..errors import StreamError
 from ..format import headers as H
 from ..format.constants import (
     DIST_EXTRA, FIXED_DIST_CODES_REV, FIXED_DIST_LENGTHS, FIXED_LIT_CODES_REV,
-    FIXED_LIT_LENGTHS, LENGTH_EXTRA, MAX_BITS, WINDOW_SIZE, effective_window,
+    FIXED_LIT_LENGTHS, LENGTH_EXTRA, WINDOW_SIZE, effective_window,
 )
 from ..huffman.bitpack import pack_bits
 from ..stream.deflate import (
@@ -45,7 +46,7 @@ from ..stream.deflate import compress as compress_host
 from ..trace import count, fetch, span, trace, upload
 from .bitpack import _or_field
 from .bitpack_merge import hierarchical_pack
-from .huffman import dyn_header, huff_table
+from .huffman import huff_build
 from .lz77 import (
     dist_code_arith, dist_extra_arith, finalize_tokens,
     length_code_arith, length_extra_arith, lz77_lane, unit_freqs,
@@ -266,9 +267,9 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
     with span("stage2.huffman", dev):
         lfreq_b = lfreq_n.gather(1, assign[..., None].expand(B, qpl, 286))
         dfreq_b = ndf.gather(1, assign[..., None].expand(B, qpl, 30))
-        llen_b, lcode_b = huff_table(lfreq_b.reshape(G, 286), MAX_BITS)
-        dlen_b, dcode_b = huff_table(dfreq_b.reshape(G, 30), MAX_BITS)
-        hdr_lo_b, hdr_nb_b, hdr_bits_b = dyn_header(llen_b, dlen_b, 4)
+        (llen_b, lcode_b, dlen_b, dcode_b, hdr_lo_b, hdr_nb_b,
+         hdr_bits_b) = huff_build(lfreq_b.reshape(G, 286),
+                                  dfreq_b.reshape(G, 30), 4)
         # exact block-type choice (trees.c:657-692): dyn vs static vs stored
         extra_b = extra_n.gather(1, assign)
         dyn_b = ((lfreq_b * llen_b.reshape(B, qpl, 286)).sum(-1)

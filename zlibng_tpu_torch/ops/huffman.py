@@ -12,6 +12,11 @@ the batch:
   dyn_header      : scan_tree RLE (trees.c:411-453, a 316-step loop) +
                     code-length tree + fixed-slot header tokens
 
+`huff_build` is stage 2 auto's whole build of a lane group's rows (both
+tables and the header): on CUDA tensors one launch of the hand-written
+kernel `csrc/huffman.cu`, one block per row; on CPU tensors these plain
+loops, which stay its readable twin.
+
 A write that the reference drops (`.at[n].set(..., mode="drop")`) goes to a
 spare column n here, sliced off afterwards.
 """
@@ -22,12 +27,16 @@ import math
 import numpy as np
 import torch
 
+from .. import _build
 from ..format.constants import (
-    BL_ORDER, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
+    BL_ORDER, MAX_BITS, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
 )
-from ..trace import item, upload
+from ..trace import count, item, upload
 
 I32 = torch.int32
+
+# kernel launches so far (a run resets it to show which path it took)
+launches = 0
 
 _DMAX = 64          # depth histogram size (tree depth < 64 for any n <= 320)
 _FBIG = 1 << 22     # > any frequency this codec feeds (unit sums <= 2^17)
@@ -323,3 +332,63 @@ def dyn_header(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
     lo[:, 22::2] = ex_lo.long()
     nb[:, 22::2] = ex_nb.to(I32)
     return lo, nb, nb.sum(1).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# The whole build of a lane group: the kernel on a card, the plain loops here
+# ---------------------------------------------------------------------------
+def huff_build(lfreq: torch.Tensor, dfreq: torch.Tensor, btype_bits: int):
+    """Tables and dynamic headers of G rows: (G, 286) literal/length and
+    (G, 30) distance int32 frequencies -> (llen, lcode, dlen, dcode,
+    hdr_lo, hdr_nb, hdr_bits), that is huff_table of each at MAX_BITS and
+    dyn_header(llen, dlen, btype_bits). The kernel `csrc/huffman.cu` for
+    CUDA tensors, the plain version for CPU tensors."""
+    if lfreq.is_cuda:
+        return _huff_build_cuda(lfreq, dfreq, btype_bits)
+    if lfreq.device.type != "cpu":
+        raise ValueError(f"huff_build: unsupported device {lfreq.device}")
+    return _huff_build_plain(lfreq, dfreq, btype_bits)
+
+
+def _huff_build_plain(lfreq: torch.Tensor, dfreq: torch.Tensor,
+                      btype_bits: int):
+    """The plain version, on any device: huff_table x 2 + dyn_header."""
+    llen, lcode = huff_table(lfreq, MAX_BITS)
+    dlen, dcode = huff_table(dfreq, MAX_BITS)
+    return (llen, lcode, dlen, dcode, *dyn_header(llen, dlen, btype_bits))
+
+
+def _huff_build_cuda(lfreq: torch.Tensor, dfreq: torch.Tensor,
+                     btype_bits: int):
+    """Runs the kernel on CUDA tensors: one launch on the current stream."""
+    global launches
+    for t in (lfreq, dfreq):
+        if t.dtype != I32:
+            raise ValueError("huffman kernel takes int32 frequencies")
+        if not t.is_contiguous():
+            raise ValueError("huffman kernel takes contiguous frequencies")
+        if not t.is_cuda or t.device != lfreq.device:
+            raise ValueError("huffman kernel takes CUDA tensors on one card")
+    G = lfreq.shape[0]
+    if lfreq.shape != (G, 286) or dfreq.shape != (G, 30):
+        raise ValueError("huffman kernel: frequencies must be (G, 286) and "
+                         "(G, 30)")
+    dev = lfreq.device
+    out = (torch.empty((G, 286), dtype=I32, device=dev),
+           torch.empty((G, 286), dtype=I32, device=dev),
+           torch.empty((G, 30), dtype=I32, device=dev),
+           torch.empty((G, 30), dtype=I32, device=dev),
+           torch.empty((G, HDR_SLOTS), dtype=torch.int64, device=dev),
+           torch.empty((G, HDR_SLOTS), dtype=I32, device=dev),
+           torch.empty(G, dtype=I32, device=dev))
+    if G == 0:
+        return out
+    fn = _build.kernel("huffman")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(lfreq.data_ptr(), dfreq.data_ptr(),
+                 *(t.data_ptr() for t in out), G, btype_bits, stream)
+    _build.check(err, "huffman kernel")
+    launches += 1
+    count("huffman.launches")
+    return out
