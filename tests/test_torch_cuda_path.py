@@ -24,7 +24,7 @@ from zlibng_tpu_torch.ops import (
 )
 from zlibng_tpu_torch.parallel import index, sharded
 
-from torch_corpus import pigz, sample
+from torch_corpus import pigz, pigz_lanes, sample
 from torch_mh_worker import run_ranks
 
 
@@ -294,6 +294,32 @@ def test_sharded_paths_across_cards(cards):
     assert sharded.decompress_segments_multichip(blob, starts, cards) \
         == inflate.decompress_segments_cuda(blob, starts, device="cpu")
     assert inflate.stats["mesh_ok"] == ok + 1
+
+
+@pytest.mark.gpu
+def test_pigz_layout_on_four_cards(cards, monkeypatch):
+    """pigz's -b 128 with one shard per card on cuda:0-3: the CPU's bytes
+    with four shards, and one stage 1 and one stage 2 span per shard, each
+    on its own card with a device time."""
+    if len(cards) < 4:
+        pytest.skip(f"needs 4 CUDA cards, found {len(cards)}")
+    data = pigz_lanes()
+    seen = []
+    publish = deflate._publish
+    monkeypatch.setattr(deflate, "_publish",
+                        lambda c: (seen.append(c), publish(c)))
+    got = sharded.compress_multichip(data, cards[:4], level=6,
+                                     lane_block=131072)
+    (call,) = seen
+    assert got == sharded.compress_multichip(data, ["cpu"] * 4, level=6,
+                                             lane_block=131072)
+    assert zlib.decompress(got) == data
+    for name in ("sharded.stage1.shard", "sharded.stage2.shard"):
+        spans = [sp for sp in call.spans if sp.name == name]
+        assert [sp.ids["shard"] for sp in spans] == [0, 1, 2, 3]
+        for sp in spans:
+            assert sp.dev == torch.device("cuda", sp.ids["shard"])
+            assert sp.device_s is not None and sp.device_s > 0
 
 
 @pytest.mark.gpu

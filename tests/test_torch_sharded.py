@@ -1,10 +1,11 @@
 """The port's sharded paths (`zlibng_tpu_torch/parallel/sharded.py`) on
 k CPU shards against the JAX package's on a mesh of k virtual CPU devices
 (tests/conftest.py makes 8): byte-identical streams for k in {1, 2, 4, 8}
-and lane_block in {16384, 65536} (stored, dynamic and static lanes), exact
-adler32 partials and combines, the static-tree step's arrays, and segment
-decode with equal outputs, error text and `stats` moves (the reference
-propagates a stream error from the mesh; the port copies that)."""
+and lane_block in {16384, 65536} (stored, dynamic and static lanes) and
+at pigz's 131072 on four shards, exact adler32 partials and combines, the
+static-tree step's arrays, and segment decode with equal outputs, error
+text and `stats` moves (the reference propagates a stream error from the
+mesh; the port copies that)."""
 import struct
 import zlib
 
@@ -24,7 +25,7 @@ from zlibng_tpu_torch.ops import inflate as tit
 from zlibng_tpu_torch.parallel import sharded as tsh
 from zlibng_tpu_torch.stream import inflate_serial as tser
 
-from torch_corpus import sample, synthetic, text
+from torch_corpus import pigz_lanes, sample, synthetic, text
 
 
 def _mesh(k: int) -> Mesh:
@@ -76,6 +77,20 @@ def test_compress_multichip_matches_reference(ref_streams, k, lane_block):
     assert struct.unpack(">I", got[-4:])[0] == zlib.adler32(data)
     assert _block_types(got) == ([2, 2, 2, 2, 0] if lane_block == 16384
                                  else [2, 0])
+
+
+def test_compress_multichip_matches_reference_at_pigz_width():
+    """pigz's -b 128 on four shards (one case: the reference compiles per
+    shard count): dynamic, stored and static lanes of 128 KiB, each with
+    the previous 32 KiB as history."""
+    data = pigz_lanes()
+    got = tsh.compress_multichip(data, ["cpu"] * 4, level=6,
+                                 lane_block=131072)
+    assert got == ref_sh.compress_multichip(data, _mesh(4), level=6,
+                                            lane_block=131072)
+    assert zlib.decompress(got) == data
+    # the stored lane in three stored blocks of at most 65,535 bytes
+    assert _block_types(got) == [2, 2, 2, 2, 0, 0, 0, 1]
 
 
 @pytest.mark.parametrize("k", [1, 8])

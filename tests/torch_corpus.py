@@ -64,6 +64,15 @@ def sample(name: str, n: int, seed: int = 0) -> bytes:
     return synthetic(name, n, seed)
 
 
+def pigz_lanes() -> bytes:
+    """Five 128 KiB lanes and a 300-byte tail (655,660 B), for pigz's block
+    size: two of text and two of pigz's tarball (dynamic trees), one of
+    uniform bytes (stored blocks), then a short piece of text (the static
+    tree)."""
+    return (sample("text", 2 << 17) + pigz()[:2 << 17]
+            + synthetic("a256", 1 << 17, seed=5) + text()[5000:5300])
+
+
 def freq_cases(n: int, seed: int) -> np.ndarray:
     """Adversarial and random frequency rows for an alphabet of n symbols
     (the generator of tests/test_huffman_jax.py): all zero, one symbol, two,

@@ -24,6 +24,17 @@ not. A device may repeat (`[cuda:0] * 8` runs eight shards on one card).
 On a card every shard reaches K1 and K2 through their wrappers, which
 launch the CUDA kernels for CUDA tensors; CPU shards run the plain
 versions.
+
+`compress_multichip` opens a trace root (`trace.py`) whose spans and
+counters fill `ops/deflate.py:stage_seconds`: `frame` (host: the flat
+chunks and their upload; the adler32 combine, header and trailer),
+`sharded.stage1` and `sharded.stage2` (host: from the first shard's enqueue
+to the gathered results), each with one `sharded.stage1.shard` or
+`sharded.stage2.shard` span per shard on that shard's device (`shard=s`),
+`sharded.trees` (host: the cost prepass, the per-lane trees and the
+stored/static/dynamic choice) and `stitch` (host: the packed gather and
+the bit stitch); the counters `sharded.shards`, `sharded.lanes` and
+`sharded.lanes_stored`, `_static`, `_dynamic` (which sum to the lanes).
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from ..format.constants import (
     FIXED_LIT_CODES_REV, FIXED_LIT_LENGTHS, MAX_BITS, WINDOW_SIZE,
 )
 from ..huffman.encode import build_dynamic_header, huffman_table
+from ..ops import deflate as _deflate
 from ..ops import inflate as IT
 from ..ops.bitpack import render_body_tokens
 from ..ops.bitpack_merge import hierarchical_pack
@@ -52,7 +64,7 @@ from ..ops.lz77 import (
 )
 from ..ops.parse import parse_select_encode
 from ..stream.deflate import LEVELS
-from ..trace import fetch, upload
+from ..trace import call, count, fetch, span, upload
 
 I32 = torch.int32
 I64 = torch.int64
@@ -291,9 +303,11 @@ def make_stage1_step(shards: Shards, lane_block: int, hist: int,
 
     def step(flat, enc_starts, enc_ends, hist_valids):
         es = _one_enc_start(enc_starts)
-        res = [shard_fn(f, es, *a) for f, *a in zip(
-            flat, *(shards.put(x) for x in (enc_starts, enc_ends,
-                                            hist_valids)))]
+        res = []
+        for (g, dev), f, *a in zip(shards.local(), flat, *(
+                shards.put(x) for x in (enc_starts, enc_ends, hist_valids))):
+            with span("sharded.stage1.shard", dev, shard=g):
+                res.append(shard_fn(f, es, *a))
         sel, tok_len, tok_dist, lfreq, dfreq = (list(r) for r in zip(*res))
         return (sel, tok_len, tok_dist, shards.gather(lfreq),
                 shards.gather(dfreq))
@@ -327,8 +341,11 @@ def make_stage2_step(shards: Shards, out_max: int, lane_block: int,
                             out_max)
 
     def step(flat, tok_len, tok_dist, sel, *host):
-        res = [shard_fn(*a) for a in zip(
-            flat, tok_len, tok_dist, sel, *(shards.put(x) for x in host))]
+        res = []
+        for (g, dev), *a in zip(shards.local(), flat, tok_len, tok_dist, sel,
+                                *(shards.put(x) for x in host)):
+            with span("sharded.stage2.shard", dev, shard=g):
+                res.append(shard_fn(*a))
         packed, totals, adlers = (list(r) for r in zip(*res))
         return packed, totals, shards.gather(totals), shards.gather(adlers)
 
@@ -343,127 +360,151 @@ def compress_multichip(data: bytes, devices=None, level: int = 6,
     stitches the blocks and wraps them with the combined adler32. Output
     is one standard zlib stream, byte-identical to the reference's
     `compress_multichip` on a mesh of as many devices as there are shards.
+    The call's spans and counters fill `ops/deflate.py:stage_seconds`.
 
     devices: this process's shard devices (None: every visible card; pass
     ["cpu"] * k for k shards on the CPU). group: a torch.distributed
     process group whose ranks each run this call on their own shards."""
     shards = visible_shards(devices, group)
+    with call("compress_multichip", _deflate._publish):
+        return _compress_multichip(data, shards, level, lane_block)
+
+
+def _compress_multichip(data, shards: Shards, level: int,
+                        lane_block: int) -> bytes:
+    """compress_multichip's body, inside its trace root."""
     ndev = shards.count
-    lc = LEVELS[max(1, min(9, level))]
-    buf = np.frombuffer(memoryview(bytes(data)), np.uint8)
-    n = buf.size
-    hist = WINDOW_SIZE
-    nblocks = max(1, -(-n // lane_block))
-    B = -(-nblocks // ndev) * ndev            # pad lane count to shards
-    lps = B // ndev                           # lanes per shard
-    vbuf = np.concatenate([np.zeros(hist, np.uint8), buf,
-                           np.zeros(B * lane_block - n, np.uint8)])
-    # per-shard flat chunks: the 32 K history once per shard
-    flat_len = hist + lps * lane_block
-    flat_sh = np.zeros((ndev, flat_len), np.uint8)
-    for s in range(ndev):
-        base = s * lps * lane_block
-        flat_sh[s] = vbuf[base: base + flat_len]
-    enc_starts = np.full(B, hist, np.int32)
-    enc_ends = np.full(B, hist, np.int32)
-    hist_valids = np.full(B, hist, np.int32)  # empty pad lanes: no history
-    for bi in range(nblocks):
-        enc_ends[bi] = hist + min(lane_block, n - bi * lane_block)
-        hist_valids[bi] = hist if bi == 0 else 0
-    out_max = lane_block + (lane_block >> 2) + 1024
+    count("sharded.shards", ndev)
+    with span("frame"):
+        lc = LEVELS[max(1, min(9, level))]
+        buf = np.frombuffer(memoryview(bytes(data)), np.uint8)
+        n = buf.size
+        hist = WINDOW_SIZE
+        nblocks = max(1, -(-n // lane_block))
+        B = -(-nblocks // ndev) * ndev            # pad lane count to shards
+        lps = B // ndev                           # lanes per shard
+        vbuf = np.concatenate([np.zeros(hist, np.uint8), buf,
+                               np.zeros(B * lane_block - n, np.uint8)])
+        # per-shard flat chunks: the 32 K history once per shard
+        flat_len = hist + lps * lane_block
+        flat_sh = np.zeros((ndev, flat_len), np.uint8)
+        for s in range(ndev):
+            base = s * lps * lane_block
+            flat_sh[s] = vbuf[base: base + flat_len]
+        enc_starts = np.full(B, hist, np.int32)
+        enc_ends = np.full(B, hist, np.int32)
+        hist_valids = np.full(B, hist, np.int32)  # empty pad lanes: none
+        for bi in range(nblocks):
+            enc_ends[bi] = hist + min(lane_block, n - bi * lane_block)
+            hist_valids[bi] = hist if bi == 0 else 0
+        out_max = lane_block + (lane_block >> 2) + 1024
+        flat_d = shards.put(flat_sh)
 
     s1 = make_stage1_step(shards, lane_block, hist, lc.chain, lc.lazy,
                           lc.max_lazy, lc.nice, good=lc.good)
     s2 = make_stage2_step(shards, out_max, lane_block, hist)
-    flat_d = shards.put(flat_sh)
-    sel, tok_len, tok_dist, lfreqs, dfreqs = s1(flat_d, enc_starts,
-                                                 enc_ends, hist_valids)
+    with span("sharded.stage1"):
+        sel, tok_len, tok_dist, lfreqs, dfreqs = s1(flat_d, enc_starts,
+                                                     enc_ends, hist_valids)
     lfreqs = lfreqs.astype(np.int64)
     dfreqs = dfreqs.astype(np.int64)
-
-    # host: vectorized cost prepass + per-lane tree build + three-way
-    # stored/static/dynamic choice (trees.c:657-692): an incompressible
-    # lane is emitted as raw stored blocks
     plens = (enc_ends - enc_starts).astype(np.int64)          # payload bytes
-    lfreqs[:, 256] += 1                                       # EOB per lane
-    extra_v = _extra_bits_batch(lfreqs, dfreqs)               # (B,)
-    static_v = lfreqs @ FIXED_LIT_LENGTHS[:286].astype(np.int64) \
-        + dfreqs @ FIXED_DIST_LENGTHS.astype(np.int64) + extra_v  # (B,)
-    # exact stored cost: per 65535-byte chunk 3-bit header + pad(<=7) + 32
-    nchunks = np.maximum(1, -(-plens // 0xFFFF))
-    stored_v = 8 * plens + nchunks * (32 + 3 + 7)
-    ests = _est_block_bits_batch(lfreqs, dfreqs, extra_v)     # (B,) float
-    # prestored: stored so clearly wins that the tree build is skipped
-    prestored = stored_v + 64 < np.minimum(ests, static_v)
 
-    hdr_lo = np.zeros((B, HMAX), np.uint32)
-    hdr_hi = np.zeros((B, HMAX), np.uint32)
-    hdr_nb = np.zeros((B, HMAX), np.int32)
-    llen_tab = np.zeros((B, 288), np.int32)
-    lcode_tab = np.zeros((B, 288), np.int32)
-    dlen_tab = np.zeros((B, 30), np.int32)
-    dcode_tab = np.zeros((B, 30), np.int32)
-    stored_mask = np.zeros(B, bool)
-    for bi in range(nblocks):
-        final = bi == nblocks - 1
-        if prestored[bi]:
-            stored_mask[bi] = True
-            continue
-        lfreq = lfreqs[bi]
-        dfreq = dfreqs[bi]
-        static_bits = int(static_v[bi])
-        llen, lcode = huffman_table(lfreq, MAX_BITS)
-        dlen, dcode = huffman_table(dfreq, MAX_BITS)
-        toks, hbits = build_dynamic_header(llen, dlen)
-        dyn_bits = int((lfreq * llen).sum() + (dfreq * dlen).sum()) \
-            + int(extra_v[bi]) + hbits
-        best = min(static_bits, dyn_bits)
-        if int(stored_v[bi]) < best + 3:                      # exact re-choice
-            stored_mask[bi] = True
-            continue
-        if dyn_bits < static_bits:
-            tokens = [(int(final) | (2 << 1), 3)] + toks
-            llen_tab[bi, :286], lcode_tab[bi, :286] = llen, lcode
-            dlen_tab[bi], dcode_tab[bi] = dlen, dcode
-        else:
-            tokens = [(int(final) | (1 << 1), 3)]
-            llen_tab[bi] = FIXED_LIT_LENGTHS
-            lcode_tab[bi] = FIXED_LIT_CODES_REV
-            dlen_tab[bi, :] = FIXED_DIST_LENGTHS
-            dcode_tab[bi, :] = FIXED_DIST_CODES_REV
-        hdr_lo[bi], hdr_hi[bi], hdr_nb[bi] = _header_tokens_to_arrays(tokens)
+    with span("sharded.trees"):
+        # host: vectorized cost prepass + per-lane tree build + three-way
+        # stored/static/dynamic choice (trees.c:657-692): an incompressible
+        # lane is emitted as raw stored blocks
+        lfreqs[:, 256] += 1                                   # EOB per lane
+        extra_v = _extra_bits_batch(lfreqs, dfreqs)           # (B,)
+        static_v = lfreqs @ FIXED_LIT_LENGTHS[:286].astype(np.int64) \
+            + dfreqs @ FIXED_DIST_LENGTHS.astype(np.int64) + extra_v  # (B,)
+        # exact stored cost: per 65535-byte chunk 3-bit header + pad(<=7) + 32
+        nchunks = np.maximum(1, -(-plens // 0xFFFF))
+        stored_v = 8 * plens + nchunks * (32 + 3 + 7)
+        ests = _est_block_bits_batch(lfreqs, dfreqs, extra_v)  # (B,) float
+        # prestored: stored so clearly wins that the tree build is skipped
+        prestored = stored_v + 64 < np.minimum(ests, static_v)
 
-    packed, _, totals_np, shard_adlers = s2(
-        flat_d, tok_len, tok_dist, sel, hdr_lo, hdr_hi, hdr_nb, llen_tab,
-        lcode_tab, dlen_tab, dcode_tab, enc_starts, enc_ends)
-    packed_np = shards.gather(packed)
+        hdr_lo = np.zeros((B, HMAX), np.uint32)
+        hdr_hi = np.zeros((B, HMAX), np.uint32)
+        hdr_nb = np.zeros((B, HMAX), np.int32)
+        llen_tab = np.zeros((B, 288), np.int32)
+        lcode_tab = np.zeros((B, 288), np.int32)
+        dlen_tab = np.zeros((B, 30), np.int32)
+        dcode_tab = np.zeros((B, 30), np.int32)
+        stored_mask = np.zeros(B, bool)
+        n_dynamic = 0
+        for bi in range(nblocks):
+            final = bi == nblocks - 1
+            if prestored[bi]:
+                stored_mask[bi] = True
+                continue
+            lfreq = lfreqs[bi]
+            dfreq = dfreqs[bi]
+            static_bits = int(static_v[bi])
+            llen, lcode = huffman_table(lfreq, MAX_BITS)
+            dlen, dcode = huffman_table(dfreq, MAX_BITS)
+            toks, hbits = build_dynamic_header(llen, dlen)
+            dyn_bits = int((lfreq * llen).sum() + (dfreq * dlen).sum()) \
+                + int(extra_v[bi]) + hbits
+            best = min(static_bits, dyn_bits)
+            if int(stored_v[bi]) < best + 3:                  # exact re-choice
+                stored_mask[bi] = True
+                continue
+            if dyn_bits < static_bits:
+                n_dynamic += 1
+                tokens = [(int(final) | (2 << 1), 3)] + toks
+                llen_tab[bi, :286], lcode_tab[bi, :286] = llen, lcode
+                dlen_tab[bi], dcode_tab[bi] = dlen, dcode
+            else:
+                tokens = [(int(final) | (1 << 1), 3)]
+                llen_tab[bi] = FIXED_LIT_LENGTHS
+                lcode_tab[bi] = FIXED_LIT_CODES_REV
+                dlen_tab[bi, :] = FIXED_DIST_LENGTHS
+                dcode_tab[bi, :] = FIXED_DIST_CODES_REV
+            hdr_lo[bi], hdr_hi[bi], hdr_nb[bi] = \
+                _header_tokens_to_arrays(tokens)
+        n_stored = int(stored_mask.sum())
+        count("sharded.lanes", nblocks)
+        count("sharded.lanes_stored", n_stored)
+        count("sharded.lanes_static", nblocks - n_stored - n_dynamic)
+        count("sharded.lanes_dynamic", n_dynamic)
 
-    stitch = _BitStitcher()
-    for bi in range(nblocks):
-        if stored_mask[bi]:
-            # raw stored blocks straight from the input (the lane's packed
-            # output is ignored; its adler32 still counts)
-            p0 = hist + bi * lane_block
-            plen = int(plens[bi])
-            pos = 0
-            while True:
-                take = min(plen - pos, 0xFFFF)
-                last = (bi == nblocks - 1) and (pos + take == plen)
-                pad = (8 - ((stitch.bits + 3) & 7)) & 7
-                stitch.append_tokens([
-                    (int(last), 1), (0, 2), (0, pad),
-                    (take, 16), (~take & 0xFFFF, 16)])
-                stitch.append(vbuf[p0 + pos: p0 + pos + take], take * 8)
-                pos += take
-                if pos >= plen:
-                    break
-        else:
-            stitch.append(packed_np[bi], int(totals_np[bi]))
-    shard_lens = [int(plens[s * lps:(s + 1) * lps].sum())
-                  for s in range(ndev)]
-    adler = combine_shard_adlers(shard_adlers, shard_lens)
-    return (H.build_zlib_header(wbits=15, level=level) + stitch.getvalue()
-            + H.build_zlib_trailer(adler))
+    with span("sharded.stage2"):
+        packed, _, totals_np, shard_adlers = s2(
+            flat_d, tok_len, tok_dist, sel, hdr_lo, hdr_hi, hdr_nb, llen_tab,
+            lcode_tab, dlen_tab, dcode_tab, enc_starts, enc_ends)
+
+    with span("stitch"):
+        packed_np = shards.gather(packed)
+        stitch = _BitStitcher()
+        for bi in range(nblocks):
+            if stored_mask[bi]:
+                # raw stored blocks straight from the input (the lane's
+                # packed output is ignored; its adler32 still counts)
+                p0 = hist + bi * lane_block
+                plen = int(plens[bi])
+                pos = 0
+                while True:
+                    take = min(plen - pos, 0xFFFF)
+                    last = (bi == nblocks - 1) and (pos + take == plen)
+                    pad = (8 - ((stitch.bits + 3) & 7)) & 7
+                    stitch.append_tokens([
+                        (int(last), 1), (0, 2), (0, pad),
+                        (take, 16), (~take & 0xFFFF, 16)])
+                    stitch.append(vbuf[p0 + pos: p0 + pos + take], take * 8)
+                    pos += take
+                    if pos >= plen:
+                        break
+            else:
+                stitch.append(packed_np[bi], int(totals_np[bi]))
+
+    with span("frame"):
+        shard_lens = [int(plens[s * lps:(s + 1) * lps].sum())
+                      for s in range(ndev)]
+        adler = combine_shard_adlers(shard_adlers, shard_lens)
+        return (H.build_zlib_header(wbits=15, level=level)
+                + stitch.getvalue() + H.build_zlib_trailer(adler))
 
 
 # ---------------------------------------------------------------------------
