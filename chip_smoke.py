@@ -780,6 +780,72 @@ def check_huffman(data: bytes) -> list:
     return rows
 
 
+def check_flat_luts(indexed: dict) -> list:
+    """Decode phase A's flat-LUT kernel (csrc/flat_luts.cu) at the indexed
+    decode's wave shapes: one warm decompress_indexed_cuda of the corpus
+    (the input back, two launches per phase A dispatch), every LUT it built
+    equal to the plain version run on the card, then the widest literal
+    and distance builds (most lanes times lut_cap, padding lanes included)
+    timed per call between CUDA events, the kernel's device time by
+    torch.profiler too, and the plain version's."""
+    from zlibng_tpu_torch.ops import inflate
+    from zlibng_tpu_torch.parallel.index import decompress_indexed_cuda
+    build, seen = inflate._build_flat_luts, []
+
+    def keep(tabs, masks, lut_cap):
+        out = build(tabs, masks, lut_cap)
+        seen.append((tabs.clone(), masks.clone(), lut_cap, out.clone()))
+        return out
+    inflate._build_flat_luts = keep
+    n0 = inflate.launches
+    try:
+        out = decompress_indexed_cuda(indexed["blob"], indexed["idx"])
+    finally:
+        inflate._build_flat_luts = build
+    torch.cuda.synchronize()
+    st = inflate.decode_stats
+    launches = inflate.launches - n0
+    if out != indexed["data"]:
+        raise AssertionError("flat LUTs: the indexed decode's output differs")
+    if launches != 2 * st["phase_a"] or launches != len(seen) \
+            or st["phase_a.luts.launches"] != launches:
+        raise AssertionError(
+            f"flat LUTs: {launches} launches ({len(seen)} builds, counter "
+            f"{st.get('phase_a.luts.launches')}) for {st['phase_a']} phase A "
+            f"dispatches, not two each")
+    for k, (t, m, cap, got) in enumerate(seen):
+        want = inflate._build_flat_luts_plain(t, m, cap)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"flat LUTs: build {k} (B {t.shape[0]}, "
+                                 f"lut_cap {cap}) differs from the plain "
+                                 f"version")
+    rows = []
+    # each table's widest build of the call: the most lanes, the widest LUT
+    widest = [max(seen[k::2], key=lambda b: (b[0].shape[0] * b[2]))
+              for k in (0, 1)]
+    for name, (t, m, cap, _) in zip(("literal/length", "distance"), widest):
+        B, nsyms = t.shape[0], t.shape[1] - 48
+        ms = timed(lambda: inflate._build_flat_luts_cuda(t, m, cap), 200)
+        dev = device_ms(lambda: inflate._build_flat_luts_cuda(t, m, cap),
+                        200, "flat_luts")
+        plain_ms = timed(lambda: inflate._build_flat_luts_plain(t, m, cap),
+                         20)
+        # bytes: every entry written once, the descriptions and masks read
+        nbytes = 4 * B * cap + 4 * B * (48 + nsyms) + 4 * B
+        b_ms, by = bound(nbytes, 0)
+        dev_ms = sum(dev.values()) if dev else None
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"flat LUT kernel ({name}, B={B}, lut_cap={cap}): equal to "
+              f"plain; kernel {ms:.4f} ms per call (device {dev_txt}); plain "
+              f"{plain_ms:.3f} ms; bound {b_ms:.5f} ms ({by}, {nbytes} B); "
+              f"{launches} launches per indexed decode ({st['phase_a']} "
+              f"dispatches)", flush=True)
+        rows.append(dict(name=name, B=B, lut_cap=cap, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         launches=launches, max_abs_err=0))
+    return rows
+
+
 def deep_path(data: bytes) -> dict:
     """compress_cuda with a chain-128 tune on the corpus's first 2 MiB
     (one full-width lane group), against the reference's pinned digest
@@ -1875,6 +1941,8 @@ def main() -> int:
                           indexed.pop("wave"), k2, indexed["launches"]))
     deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
     huf_rows = phase("Huffman kernel check", check_huffman, data)
+    lut_rows = phase("flat LUT kernel check", check_flat_luts,
+                     dict(indexed, data=data))
     check_estimate(lanes)
     del lanes, k1_inputs
     t0 = time.perf_counter()
@@ -1932,6 +2000,15 @@ def main() -> int:
             launches=runs[6, 0]["huffman_launches"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row["device_ms"]))
+    for row in lut_rows:
+        kernels.append(dict(
+            name=f"flat_luts ({row['name']}, B = {row['B']}, lut_cap = "
+                 f"{row['lut_cap']})", route="cuda",
+            source=src + "flat_luts.cu", replaces=None,
+            launches=row["launches"], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,
             device_ms=row["device_ms"]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("probe", "parse", "huffman")
+KERNELS = ("probe", "parse", "huffman", "flat_luts")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # C signatures: pointers as c_void_p (a bare int would be cut to 32 bits)
@@ -30,6 +30,7 @@ _SIGNATURES = {
     "probe": ("zng_probe_best", [_P] * 7 + [_I] * 10 + [_P]),
     "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
     "huffman": ("zng_huff_build", [_P] * 9 + [_I] * 2 + [_P]),
+    "flat_luts": ("zng_flat_luts", [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -45,6 +45,7 @@ from ..stream import inflate_serial as _serial
 from ..stream.inflate_serial import (
     _S_BLOCK_HEADER, _S_HUFF, _S_STORED, NEED_INPUT, RawInflater,
 )
+from .. import _build
 from .. import trace as _trace
 from ..trace import count, fetch, item, span, trace, upload
 from .deflate import _device
@@ -68,6 +69,10 @@ B_STORED = 2
 _CB_BUCKETS = (1 << 11, 1 << 14, 1 << 15, 1 << 17)
 _DPAD = 1 << 15          # dictionary/window prefix region in phase B
 _BIG = 1 << 26           # chain-terminating step
+
+# flat-LUT kernel launches so far (a run resets it to show which path it
+# took)
+launches = 0
 
 # Above this size, an unindexed single stream decodes on the host: without
 # known segment boundaries the device path round-trips once per DEFLATE
@@ -125,10 +130,70 @@ def _code_bases(dev: str) -> tuple[torch.Tensor, torch.Tensor]:
 def _build_flat_luts(tabs: torch.Tensor, masks: torch.Tensor,
                      lut_cap: int) -> torch.Tensor:
     """Flat LUTs from the canonical description (_canon_tables packing,
-    (B, 48 + nsyms) int32): for every peek value the code length is found
-    by 15 canonical-range compares, then one symtab gather gives the
-    symbol. Entries are sym << 4 | len, -16 invalid: the host LUT layout.
-    Returns (B, lut_cap) int32."""
+    (B, 48 + nsyms) int32) and each lane's peek mask (B,) int32: entry p
+    of lane b decodes the peek value p. With w the popcount of the mask,
+    the code length is the first ln <= w whose canonical offset of p's
+    top w reversed bits lies in the range of length ln; a symtab gather
+    gives the symbol. Entries are sym << 4 | len, -16 invalid: the host
+    LUT layout. Returns (B, lut_cap) int32.
+
+    CUDA tensors: one launch of the hand-written kernel `csrc/flat_luts.cu`
+    on the current stream (or it raises); CPU tensors: the plain version,
+    `_build_flat_luts_plain`; any other device raises. The two are equal
+    entry for entry for every mask of popcount <= 15 and any table from
+    `_canon_tables`, padding lanes' zero tables with mask 0 included; phase
+    A passes only masks (1 << w) - 1 with w <= 15."""
+    if tabs.is_cuda:
+        return _build_flat_luts_cuda(tabs, masks, lut_cap)
+    if tabs.device.type != "cpu":
+        raise ValueError(
+            f"_build_flat_luts: unsupported device {tabs.device}")
+    return _build_flat_luts_plain(tabs, masks, lut_cap)
+
+
+def _build_flat_luts_cuda(tabs: torch.Tensor, masks: torch.Tensor,
+                          lut_cap: int) -> torch.Tensor:
+    """Runs the kernel on CUDA tensors: one launch on the current stream,
+    checking only what needs no wait for the card."""
+    global launches
+    for t in (tabs, masks):
+        if t.dtype != I32:
+            raise ValueError("flat_luts kernel takes int32 tables and masks")
+        if not t.is_contiguous():
+            raise ValueError("flat_luts kernel takes contiguous tables and "
+                             "masks")
+    if tabs.dim() != 2 or tabs.shape[1] <= 48 \
+            or masks.shape != (tabs.shape[0],):
+        raise ValueError("flat_luts kernel: tables must be (B, 48 + nsyms) "
+                         "with nsyms >= 1 and masks (B,)")
+    if not 1 <= lut_cap <= 1 << 15:
+        raise ValueError(f"flat_luts kernel: lut_cap {lut_cap} is not in "
+                         f"[1, 32768]")
+    B = tabs.shape[0]
+    if B > 65535:
+        raise ValueError(f"flat_luts kernel: {B} lanes, at most 65535")
+    if not tabs.is_cuda or masks.device != tabs.device:
+        raise ValueError("flat_luts kernel takes CUDA tensors on one card")
+    dev = tabs.device
+    out = torch.empty((B, lut_cap), dtype=I32, device=dev)
+    if B == 0:
+        return out
+    fn = _build.kernel("flat_luts")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(tabs.data_ptr(), masks.data_ptr(), out.data_ptr(), B,
+                 tabs.shape[1] - 48, lut_cap, stream)
+    _build.check(err, "flat_luts kernel")
+    launches += 1
+    count("phase_a.luts.launches")
+    return out
+
+
+def _build_flat_luts_plain(tabs: torch.Tensor, masks: torch.Tensor,
+                           lut_cap: int) -> torch.Tensor:
+    """The plain version, on any device: for every peek value the code
+    length is found by 15 canonical-range compares, then one symtab gather
+    gives the symbol."""
     counts = tabs[:, 0:16]
     first = tabs[:, 16:32]
     index = tabs[:, 32:48]
