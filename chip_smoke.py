@@ -261,6 +261,13 @@ def walk_inputs(n: int, hist: int, case: int, dev,
     return names, w2_s, h_s, pos_s, hv, enc_end
 
 
+def _reset_launches(*kernels: str) -> None:
+    """Sets the named kernels' launch counts (`probe.launches` and the
+    like, read from `_build.launches`) to 0."""
+    from zlibng_tpu_torch import _build
+    _build.launches.update(dict.fromkeys(kernels, 0))
+
+
 def timed(fn, reps: int) -> float:
     """Median milliseconds of fn() over reps warm runs (CUDA events)."""
     fn()
@@ -676,9 +683,7 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     from zlibng_tpu_torch.ops import deflate, huffman, parse, probe
     name = _name(level, strategy)
     kw = dict(strategy=strategy)
-    probe.launches = 0
-    parse.launches = 0
-    huffman.launches = 0
+    _reset_launches("probe", "parse", "huffman")
     t0 = time.perf_counter()
     out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
@@ -808,10 +813,10 @@ def check_flat_luts(indexed: dict) -> list:
     if out != indexed["data"]:
         raise AssertionError("flat LUTs: the indexed decode's output differs")
     if launches != 2 * st["phase_a"] or launches != len(seen) \
-            or st["phase_a.luts.launches"] != launches:
+            or st["flat_luts.launches"] != launches:
         raise AssertionError(
             f"flat LUTs: {launches} launches ({len(seen)} builds, counter "
-            f"{st.get('phase_a.luts.launches')}) for {st['phase_a']} phase A "
+            f"{st.get('flat_luts.launches')}) for {st['phase_a']} phase A "
             f"dispatches, not two each")
     for k, (t, m, cap, got) in enumerate(seen):
         want = inflate._build_flat_luts_plain(t, m, cap)
@@ -864,7 +869,7 @@ def deep_path(data: bytes) -> dict:
         calls.append(a[0].device.type)
         return plain_deep(*a, **k)
 
-    probe.launches = parse.launches = 0
+    _reset_launches("probe", "parse")
     lz77.deep_probes = counted
     try:
         t0 = time.perf_counter()
@@ -904,7 +909,7 @@ def host_route(data: bytes) -> None:
     compress_cuda(device="cuda"): the host encoder, no kernel launched."""
     from zlibng_tpu_torch import compress_cuda
     from zlibng_tpu_torch.ops import parse, probe
-    probe.launches = parse.launches = 0
+    _reset_launches("probe", "parse")
     for what, buf, level in (("level 0, whole corpus", data, 0),
                              ("0 B at L6", b"", 6),
                              ("1 B at L6", data[:1], 6),
@@ -953,7 +958,7 @@ def _decode_run(fn) -> dict:
     from zlibng_tpu_torch.errors import DataError
     from zlibng_tpu_torch.ops import inflate, parse
     before = dict(inflate.stats)
-    parse.launches = 0
+    _reset_launches("parse")
     out = error = None
     t0 = time.perf_counter()
     try:
@@ -1324,7 +1329,7 @@ def _counted(fn) -> tuple:
     """fn() with the K1 and K2 wrappers' counts set to 0 just before and
     read just after: (result, seconds, {"K1": n, "K2": n})."""
     from zlibng_tpu_torch.ops import parse, probe
-    probe.launches = parse.launches = 0
+    _reset_launches("probe", "parse")
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -1548,7 +1553,7 @@ def sharded_compress(data: bytes, rows: list) -> dict:
             kept.setdefault("K2", a)
             return k2(*a)
 
-        probe.launches = parse.launches = 0
+        _reset_launches("probe", "parse")
         probe._probe_best_cuda, parse._parse_select_cuda = keep1, keep2
         try:
             t0 = time.perf_counter()
@@ -1574,7 +1579,7 @@ def sharded_compress(data: bytes, rows: list) -> dict:
         if card != cpu:
             raise AssertionError(f"sharded x{k}: 1 MiB prefix differs from "
                                  "the CPU port")
-        probe.launches = parse.launches = 0
+        _reset_launches("probe", "parse")
         dev, _, wall = _kernels(lambda: compress_multichip(prefix, devs,
                                                            lane_block=lb))
         counted = {"K1": probe.launches // 2, "K2": parse.launches // 2}

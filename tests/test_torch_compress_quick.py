@@ -3,8 +3,9 @@ strategy, Z_FIXED at any level) against the JAX package.
 
 compress_cuda(device="cpu") must give compress_tpu's bytes, which stdlib
 zlib decodes, on text, tar, random bytes (stored units) and runs; the
-static-code arithmetic and the fixed render + pack are held to the
-reference's arrays with demotion on and off. Its framing, dictionary,
+one render (`ops/bitpack.py:render_tokens`) against the static code tables,
+then the pack, is held to the reference's fixed render + pack with
+demotion on and off. Its framing, dictionary,
 lane-group and routing cases are in test_torch_compress_quick_args.py.
 Tolerance: none.
 """
@@ -21,6 +22,8 @@ from zlibng_tpu.ops import deflate_tpu as ref
 from zlibng_tpu.ops.deflate_tpu import compress_tpu
 from zlibng_tpu_torch import compress_cuda
 from zlibng_tpu_torch.ops import deflate as tdef
+from zlibng_tpu_torch.ops.bitpack import code_tables, render_tokens
+from zlibng_tpu_torch.ops.bitpack_merge import hierarchical_pack
 
 from torch_corpus import sample
 
@@ -47,22 +50,11 @@ def test_z_fixed_byte_identical(level, corpus):
     assert zlib.decompress(_same(data, level=level, strategy=4)) == data
 
 
-def test_static_lit_code_matches_reference():
-    sym = np.arange(288, dtype=np.int32)
-    code, nb = tdef._static_lit_code(torch.from_numpy(sym))
-    rcode, rnb = ref._static_lit_code(jnp.asarray(sym))
-    np.testing.assert_array_equal(code.numpy(), np.asarray(rcode))
-    np.testing.assert_array_equal(nb.numpy(), np.asarray(rnb))
-    v = np.arange(1 << 16, dtype=np.int32)
-    np.testing.assert_array_equal(
-        tdef._bitrev16(torch.from_numpy(v)).numpy(),
-        np.asarray(ref._bitrev16(jnp.asarray(v.astype(np.uint32)))))
-
-
 @pytest.mark.parametrize("demote", [False, True])
 def test_render_pack_unit_fixed_matches_reference(demote):
-    """Four units of text + runs tokens (stage 1 of the port), packed by
-    both renders into the 12288-byte bucket."""
+    """Four units of text + runs tokens (stage 1 of the port): the one
+    render against the static code tables, then the pack into the
+    12288-byte bucket, against the reference's closed-form fixed render."""
     lb = 1 << 16
     payload = np.frombuffer(sample("text", 3 * tdef.UNIT)
                             + sample("runs", tdef.UNIT, seed=2), np.uint8)
@@ -75,8 +67,10 @@ def test_render_pack_unit_fixed_matches_reference(demote):
     units = [t[:, tdef.LANE_HIST:].reshape(4, tdef.UNIT)
              for t in (toks["tok_len"], toks["tok_dist"], toks["sel"])]
     qbytes = torch.from_numpy(payload.reshape(4, tdef.UNIT).copy())
-    packed, bits = tdef._render_pack_unit_fixed(qbytes, *units, 12288,
-                                                demote)
+    C = code_tables("cpu")
+    packed, bits = hierarchical_pack(*render_tokens(
+        qbytes, *units, C["fl288"], C["flc"], C["fdl"], C["fdc"],
+        demote=demote), 12288)
     rpacked, rbits = jax.jit(jax.vmap(
         lambda q, a, b, c: ref._render_pack_unit_fixed(q, a, b, c, 12288,
                                                        demote)))(

@@ -327,7 +327,7 @@ def test_flat_luts_kernel_matches_plain_on_stream_tables_on_card(card,
 def test_indexed_decode_on_card_builds_luts_in_two_launches_a_dispatch(card):
     """decompress_indexed_cuda on the card: the input back, and the kernel
     launched once per table of every phase A dispatch, counted both by the
-    wrapper and by the call's `phase_a.luts.launches` counter."""
+    wrapper and by the call's `flat_luts.launches` counter."""
     data = pigz() + sample("a16", 100000) + text() + _skewed(200000)
     blob, idx = chip_smoke.indexed_blob(data, 1 << 17)
     ok, n0 = ti.stats["device_ok"], ti.launches
@@ -335,5 +335,5 @@ def test_indexed_decode_on_card_builds_luts_in_two_launches_a_dispatch(card):
     assert ti.stats["device_ok"] == ok + 1
     st = ti.decode_stats
     assert st["phase_a"] > 0
-    assert st["phase_a.luts.launches"] == 2 * st["phase_a"]
-    assert ti.launches - n0 == st["phase_a.luts.launches"]
+    assert st["flat_luts.launches"] == 2 * st["phase_a"]
+    assert ti.launches - n0 == st["flat_luts.launches"]

@@ -281,9 +281,11 @@ def test_chip_smoke_corrupt_blob_raises_the_reference_text():
 
 
 def test_render_matches_reference():
-    """ops/bitpack.py's render_body_tokens (batched) against the
-    reference's per-lane function, on random tokens and per-lane tables
-    (lengths 0-15, codes below 2^length)."""
+    """ops/bitpack.py's one render, render_tokens (batched, without
+    demotion, as the sharded steps call it), against the reference's
+    per-lane render_body_tokens, on random tokens and per-lane tables
+    (lengths 0-15, codes below 2^length); the port's render_body_tokens
+    gives the same arrays."""
     from zlibng_tpu.ops import bitpack_jax
     from zlibng_tpu.ops.lz77_jax import dist_code_arith, length_code_arith
     from zlibng_tpu_torch.ops import bitpack
@@ -302,8 +304,11 @@ def test_render_matches_reference():
     lc = (rng.integers(0, 1 << 15, (B, 288)) % (1 << ll)).astype(np.int32)
     dl = rng.integers(0, 16, (B, 30)).astype(np.int32)
     dc = (rng.integers(0, 1 << 15, (B, 30)) % (1 << dl)).astype(np.int32)
-    lo, hi, nb = bitpack.render_body_tokens(*(torch.from_numpy(x) for x in (
+    lo, hi, nb = bitpack.render_tokens(*(torch.from_numpy(x) for x in (
+        lit, tl, td, sel, ll, lc, dl, dc)))
+    body = bitpack.render_body_tokens(*(torch.from_numpy(x) for x in (
         tl, td, ls, ds, sel, ll, lc, dl, dc)))
+    assert all(torch.equal(a, b) for a, b in zip(body, (lo, hi, nb)))
     for b in range(B):
         rlo, rhi, rnb = bitpack_jax.render_body_tokens(*(
             jnp.asarray(x[b]) for x in (tl, td, ls, ds, sel, ll, lc, dl,

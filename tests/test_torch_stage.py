@@ -4,7 +4,10 @@
 bytes, as the reference's dynamic slices do) must give equal token arrays
 and per-unit (q, 286)/(q, 30) frequencies. `_stage2_auto` must give equal
 (body, hdr, meta) for equal stage-1 inputs, in a bucket that fits and in
-one that overflows (the case the caller redoes). Tolerance: none.
+one that overflows (the case the caller redoes). The one render
+(`ops/bitpack.py:render_tokens`) with per-unit dynamic tables and
+demotion, then the pack, must give the reference's `_render_pack_unit`
+bytes. Tolerance: none.
 """
 import numpy as np
 import pytest
@@ -17,8 +20,9 @@ from zlibng_tpu.ops import deflate_tpu as ref
 from zlibng_tpu.ops.bitpack_merge import hierarchical_pack as ref_pack
 from zlibng_tpu.stream.deflate import LEVELS as REF_LEVELS
 from zlibng_tpu_torch.ops import deflate as tdef
-from zlibng_tpu_torch.ops.bitpack import _or_field
+from zlibng_tpu_torch.ops.bitpack import _or_field, render_tokens
 from zlibng_tpu_torch.ops.bitpack_merge import hierarchical_pack
+from zlibng_tpu_torch.ops.huffman import huff_build
 
 from torch_corpus import sample
 
@@ -105,6 +109,41 @@ def test_stage2_auto_matches_reference(out_bytes):
     coded = (meta[:, :, 2] & 3) != 0
     over = meta[:, :, 0][coded].max() > (out_bytes - 8) * 8
     assert over == (out_bytes == 4096)
+
+
+@pytest.mark.parametrize("corpus", ["pigz", "cve"])
+def test_render_dynamic_demoted_matches_reference(corpus):
+    """One 64 KiB lane of L6 stage-1 tokens (tar and text: both have
+    matches that their unit's own tables make dearer than literals), each
+    16 KiB unit rendered against its own dynamic tables (the Huffman build
+    of its counts plus an EOB) with demotion, then packed, against the
+    reference's per-unit `_render_pack_unit`."""
+    lane_block, out_bytes = 4 * UNIT, 12288
+    lc = REF_LEVELS[6]
+    flat, enc_ends, hist = _group(lane_block, [sample(corpus, lane_block,
+                                                      seed=4)], tail=0)
+    tok, lf, df = tdef._stage1(
+        torch.from_numpy(flat), torch.from_numpy(enc_ends),
+        torch.from_numpy(hist), lane_block, lc.chain, lc.lazy, lc.max_lazy,
+        lc.nice, 0, lc.good)
+    lf = lf.reshape(4, 286).clone()
+    lf[:, 256] += 1
+    llen, lcode, dlen, dcode = huff_build(lf, df.reshape(4, 30), 4)[:4]
+    z2 = torch.zeros((4, 2), dtype=torch.int32)
+    tables = (torch.cat([llen, z2], 1), torch.cat([lcode, z2], 1), dlen,
+              dcode)
+    units = [torch.from_numpy(flat[H:].reshape(4, UNIT).copy())] + [
+        tok[k][:, H:].reshape(4, UNIT) for k in ("tok_len", "tok_dist", "sel")]
+    fields = render_tokens(*units, *tables, demote=True)
+    packed, bits = hierarchical_pack(*fields, out_bytes)
+    rpacked, rbits = jax.jit(jax.vmap(
+        lambda *a: ref._render_pack_unit(*a, out_bytes)))(
+        *(jnp.asarray(t.numpy()) for t in (*units, *tables)))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(rbits))
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(rpacked))
+    # some match was demoted: the render differs from the undemoted one
+    plain = render_tokens(*units, *tables)[2]
+    assert (plain != fields[2]).any()
 
 
 def test_hierarchical_pack_matches_reference():

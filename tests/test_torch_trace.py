@@ -316,6 +316,39 @@ def test_l1_compress_fills_the_quick_paths_keys():
         <= stages["stage2"]
 
 
+def test_warm_compress_waits_only_for_what_each_group_needs(monkeypatch):
+    """A warm L6 call and a warm L1 call of two lane groups each: `syncs`
+    counts, per group, stage 1's two uploads, the partition's round trip
+    (L6), stage 2's fetch of its descriptors or bits and the stitch's fetch,
+    besides the data-dependent waits of the CPU's plain routes (stage 1's
+    wide extension, the plain Huffman build). No constant code table is
+    uploaded or fetched once the device's first call has cached them."""
+    monkeypatch.setattr(deflate, "GROUP_BYTES", 1 << 18)
+    data = (text() + pigz())[:300000]          # three 128 KiB lanes
+    per_group = {
+        6: {"_dispatch_stage1": 2, "_partition": 2,
+            "_dispatch_stage2_auto": 1, "_stitch_auto": 1},
+        1: {"_dispatch_stage1": 2, "_dispatch_stage2_quick": 1,
+            "_stitch_quick": 1}}
+    plain_routes = {"_wide_extension", "pick", "_rle_scan", "huff_lengths"}
+    wait = trace._wait
+    for level, need in per_group.items():
+        compress_cuda(data, level, device="cpu")
+        seen = collections.Counter()
+
+        def spy(fn, nbytes):
+            seen[sys._getframe(2).f_code.co_name] += 1   # fetch's caller
+            return wait(fn, nbytes)
+
+        monkeypatch.setattr(trace, "_wait", spy)
+        out = compress_cuda(data, level, device="cpu")
+        monkeypatch.setattr(trace, "_wait", wait)
+        assert zlib.decompress(out) == data
+        assert deflate.stage_seconds["syncs.n"] == sum(seen.values())
+        assert {k: v for k, v in seen.items() if k not in plain_routes} \
+            == {k: 2 * v for k, v in need.items()}, (level, seen)
+
+
 def test_indexed_decode_counts_what_k2_is_handed(monkeypatch):
     data = text()[:40000]
     blob, idx = index.compress_indexed(data, 6, segment=16384)

@@ -1,10 +1,14 @@
-"""Builds and loads the port's CUDA kernels (`csrc/*.cu`).
+"""Builds, loads and launches the port's CUDA kernels (`csrc/*.cu`).
 
 Each source compiles with nvcc into its own shared library with a plain C
 interface, at first use, into `_build/` beside this file, under a name keyed
 by a hash of the source and the flags; a later process reuses it. Libraries
 are loaded with ctypes. A missing nvcc or a failed build raises: there is
-no other route to the kernels.
+no other route to the kernels. Every kernel launches through `launch`, on
+its card's current stream, and its wrapper checks its tensors with
+`check_int32`; a new kernel needs its `.cu` file, a `_SIGNATURES` entry
+whose last argument is the stream, and a wrapper that checks its shapes,
+allocates its outputs and calls `launch`.
 """
 from __future__ import annotations
 
@@ -16,6 +20,10 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
+
+from .trace import count
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -35,6 +43,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _funcs: dict[str, object] = {}
+# launches of each kernel so far in this process (a caller may reset them)
+launches = dict.fromkeys(KERNELS, 0)
 
 
 def nvcc() -> str:
@@ -102,6 +112,43 @@ def kernel(name: str):
         return fn
 
 
-def check(err: int, what: str) -> None:
+def check_int32(what: str, *tensors) -> torch.device:
+    """The card of `tensors`, which must be contiguous int32 CUDA tensors
+    on one card (ValueError otherwise)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda \
+                or t.device != dev:
+            raise ValueError(f"{what} takes contiguous int32 CUDA tensors "
+                             "on one card")
+    return dev
+
+
+def launch_count(name: str):
+    """A wrapper module's `__getattr__` that gives kernel `name`'s
+    `launches` as the module attribute `launches` (`probe.launches`)."""
+    def getattr_(attr: str):
+        if attr == "launches":
+            return launches[name]
+        raise AttributeError(f"no attribute {attr!r}")
+    return getattr_
+
+
+def launch(name: str, dev: torch.device, *args) -> None:
+    """Launches kernel `name` on the current stream of card `dev` (made
+    current only when it is not already), with `args` in the order of its
+    C signature before the stream: a tensor passes its data pointer, an int
+    itself. The raw stream handle skips torch's Stream object, whose cost
+    is as long as a short kernel. Raises on a launch error; counts the
+    launch in `launches` and in the trace counter `<name>.launches`."""
+    fn = _funcs.get(name) or kernel(name)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if dev.index == torch.cuda.current_device():
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise RuntimeError(f"{name} kernel: CUDA error {err} at launch")
+    launches[name] += 1
+    count(f"{name}.launches")

@@ -10,10 +10,10 @@ Counterpart of `zlibng_tpu/ops/deflate_tpu.py`:
   device: stage 2, auto — block partition (entropy-estimate DP), exact
           Huffman tables + dynamic headers [ops/huffman.py; one kernel
           per group, csrc/huffman.cu, on the card], block-type
-          choice from exact bits, token render + bit pack
-          [ops/bitpack_merge.py]; or the fixed-tree quick path (L1 and
-          Z_FIXED): each unit's exact static bits from stage 1, static
-          codes in closed form, render + pack
+          choice from exact bits, token render [ops/bitpack.py] + bit
+          pack [ops/bitpack_merge.py]; or the fixed-tree quick path (L1
+          and Z_FIXED): each unit's exact static bits from stage 1, the
+          same render against the static code tables, pack
   host:   fetch per-unit descriptors and the packed bytes; bit-level
           stitch (stored blocks from the raw input) + zlib/gzip framing
 
@@ -35,8 +35,7 @@ from ..checksum.crc32 import crc32
 from ..errors import StreamError
 from ..format import headers as H
 from ..format.constants import (
-    DIST_EXTRA, FIXED_DIST_CODES_REV, FIXED_DIST_LENGTHS, FIXED_LIT_CODES_REV,
-    FIXED_LIT_LENGTHS, LENGTH_EXTRA, WINDOW_SIZE, effective_window,
+    FIXED_LIT_CODES_REV, WINDOW_SIZE, effective_window,
 )
 from ..huffman.bitpack import pack_bits
 from ..stream.deflate import (
@@ -44,13 +43,10 @@ from ..stream.deflate import (
 )
 from ..stream.deflate import compress as compress_host
 from ..trace import count, fetch, span, trace, upload
-from .bitpack import _or_field
+from .bitpack import DEXT, LEXT, code_tables, render_tokens
 from .bitpack_merge import hierarchical_pack
 from .huffman import huff_build
-from .lz77 import (
-    dist_code_arith, dist_extra_arith, finalize_tokens,
-    length_code_arith, length_extra_arith, lz77_lane, unit_freqs,
-)
+from .lz77 import finalize_tokens, lz77_lane, unit_freqs
 from .parse import parse_select_encode
 
 I32 = torch.int32
@@ -140,78 +136,11 @@ def _stage1(flat, enc_ends, hist_valids, lane_block, chain, lazy, max_lazy,
         # product of the counts and the static code + extra lengths as an
         # elementwise product and an int32 sum (no int32 matmul on CUDA;
         # exact, counts <= UNIT)
-        C = _consts(flat.device)
+        C = code_tables(flat.device)
         fb = ((lfreqs * (C["fll"] + C["lext"])).sum(-1, dtype=I32)
               + (dfreqs * (C["fdl"] + C["dext"])).sum(-1, dtype=I32))
         return toks, fb, None
     return toks, lfreqs, dfreqs
-
-
-def _render_unit(qbytes, tl, td, se, lt, lc, dt, dc):
-    """Demotion + render of (U, UNIT) units against per-unit (lt, lc, dt,
-    dc) code tables ((U, 288) and (U, 30)): the (lo, hi, nbits) token
-    fields that hierarchical_pack packs."""
-    tl = tl.to(I32)
-    td = td.to(I32)
-    U, N = tl.shape
-    pos = torch.arange(N, dtype=I32, device=tl.device)
-
-    # cost-model demotion: under the unit's real tables, a selected match
-    # whose bits exceed its span's literal bits becomes literals
-    is_match = (tl > 0) & se
-    lsm = torch.where(is_match, length_code_arith(tl.clamp(min=3)), 257)
-    dsm = torch.where(is_match, dist_code_arith(td.clamp(min=1)), 0)
-    le_, lv_ = length_extra_arith(tl.clamp(min=3))
-    de_, dv_ = dist_extra_arith(td.clamp(min=1))
-    qb = qbytes.long()
-    lit_code, lit_len = lc.gather(1, qb), lt.gather(1, qb)
-    m_code, m_len = lc.gather(1, lsm.long()), lt.gather(1, lsm.long())
-    d_code, d_len = dc.gather(1, dsm.long()), dt.gather(1, dsm.long())
-    match_bits = m_len + le_ + d_len + de_
-    csum = torch.cumsum(torch.stack([lit_len, (lit_len == 0).to(I32)], -1),
-                        1).to(I32)
-    csum = torch.cat([torch.zeros_like(csum[:, :1]), csum], 1)
-    endq = (pos + tl).clamp(0, N).long()
-    at_end = csum.gather(1, endq[..., None].expand(U, N, 2))
-    span_bits = at_end[..., 0] - csum[:, :-1, 0]
-    span_zero = (at_end[..., 1] - csum[:, :-1, 1]) > 0
-    demote = is_match & ~span_zero & (match_bits > span_bits)
-    end_max = torch.where(demote, pos + tl, 0).cummax(1).values
-    covered = pos < end_max
-    se = se | covered
-
-    fm = is_match & ~covered
-    code0 = torch.where(fm, m_code, lit_code).to(torch.int64)
-    n0 = torch.where(fm, m_len, lit_len)
-    le = torch.where(fm, le_, 0)
-    lv = torch.where(fm, lv_, 0)
-    dcode = torch.where(fm, d_code, 0)
-    dn = torch.where(fm, d_len, 0)
-    de = torch.where(fm, de_, 0)
-    dv = torch.where(fm, dv_, 0)
-    lo, hi = code0, torch.zeros_like(code0)
-    sh = n0
-    lo, hi = _or_field(lo, hi, lv, sh)
-    sh = sh + le
-    lo, hi = _or_field(lo, hi, dcode, sh)
-    sh = sh + dn
-    lo, hi = _or_field(lo, hi, dv, sh)
-    nb = torch.where(se, n0 + le + dn + de, 0).to(I32)
-    lo = torch.where(se, lo, 0)
-    hi = torch.where(se, hi, 0)
-    return lo, hi, nb
-
-
-def _consts(dev):
-    def t(a):
-        return upload(np.asarray(a, np.int32), dev)
-
-    lext = np.zeros(286, np.int32)
-    lext[257:286] = LENGTH_EXTRA[:29]
-    return dict(lext=t(lext), dext=t(DIST_EXTRA[:30]),
-                fll=t(FIXED_LIT_LENGTHS[:286]), fl288=t(FIXED_LIT_LENGTHS),
-                flc=t(FIXED_LIT_CODES_REV), fdl=t(FIXED_DIST_LENGTHS),
-                fdc=t(FIXED_DIST_CODES_REV))
 
 
 def _ent(f: torch.Tensor, tot: torch.Tensor) -> torch.Tensor:
@@ -258,8 +187,8 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
     B = pay.shape[0]
     dev = pay.device
     G = B * qpl
+    C = code_tables(dev)
     with span("stage2.partition", dev):
-        C = _consts(dev)
         (lfreq_n, ndf, nsto, extra_n, sta_n, assign, first_q,
          last_q) = _partition(lfreq_u, dfreq_u, unit_lens, qpl, C)
 
@@ -291,9 +220,9 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
         lc_u = torch.where(dynsel, torch.cat([lcode_b, z2], 1), C["flc"])
         dt_u = torch.where(dynsel, dlen_b, C["fdl"])
         dc_u = torch.where(dynsel, dcode_b, C["fdc"])
-        body = _render_unit(
+        body = render_tokens(
             pay.reshape(G, UNIT), tlq.reshape(G, UNIT), tdq.reshape(G, UNIT),
-            seq.reshape(G, UNIT), lt_u, lc_u, dt_u, dc_u)
+            seq.reshape(G, UNIT), lt_u, lc_u, dt_u, dc_u, demote=True)
 
         # ---- per-unit header tokens (first-of-block only) ---------------
         first_q = first_q.reshape(G)
@@ -359,8 +288,8 @@ def _partition(lfreq_u, dfreq_u, unit_lens, qpl: int, C: dict):
                + (ndf * C["dext"]).sum(-1)).to(I32)
     # the estimate's round trip through the host (see _est_dyn)
     est_dyn_n = upload(_est_dyn(
-        *(torch.from_numpy(fetch(t)) for t in (
-            torch.cat([lfreq_n, ndf], -1), C["lext"], C["dext"]))), dev)
+        torch.from_numpy(fetch(torch.cat([lfreq_n, ndf], -1))),
+        torch.from_numpy(LEXT), torch.from_numpy(DEXT)), dev)
     sta_n = ((lfreq_n * C["fll"]).sum(-1) + (ndf * C["fdl"]).sum(-1)
              + extra_n + 3).to(I32)
     cost_n = torch.minimum(torch.minimum(est_dyn_n, sta_n), nsto)
@@ -416,107 +345,26 @@ def _stage2_auto(flat, tok_len, tok_dist, sel, lfreqs, dfreqs, enc_ends,
                              out_bytes, qpl)
 
 
-def _bitrev16(v: torch.Tensor) -> torch.Tensor:
-    """Bit-reverse the low 16 bits of v (int32, 0 <= v < 2^16)."""
-    v = ((v & 0x5555) << 1) | ((v >> 1) & 0x5555)
-    v = ((v & 0x3333) << 2) | ((v >> 2) & 0x3333)
-    v = ((v & 0x0F0F) << 4) | ((v >> 4) & 0x0F0F)
-    return ((v & 0x00FF) << 8) | ((v >> 8) & 0x00FF)
-
-
-def _static_lit_code(sym: torch.Tensor):
-    """(lsb_first_code, nbits) int32 of the RFC 1951 §3.2.6 static
-    literal/length code of sym (0..287), in closed form: 0-143 -> 8 bits
-    from 0x30, 144-255 -> 9 from 0x190, 256-279 -> 7 from 0, 280-287 -> 8
-    from 0xC0."""
-    sym = sym.to(I32)
-    nb = torch.where(sym < 144, 8, torch.where(
-        sym < 256, 9, torch.where(sym < 280, 7, 8))).to(I32)
-    base = torch.where(
-        sym < 144, 0x30 + sym,
-        torch.where(sym < 256, 0x190 + sym - 144,
-                    torch.where(sym < 280, sym - 256, 0xC0 + sym - 280)))
-    return _bitrev16(base) >> (16 - nb), nb
-
-
-def _render_pack_unit_fixed(qbytes, tl, td, se, out_bytes: int,
-                            demote: bool):
-    """Static-tree render + pack of (U, UNIT) units, every code computed
-    arithmetically. `demote` turns on the cost-model match demotion
-    (Z_FIXED); the L1 quick path emits matches unconditionally, as
-    zlib-ng's deflate_quick does (deflate_quick.c:47-130)."""
-    with span("stage2.render", tl.device):
-        fields = _render_unit_fixed(qbytes, tl, td, se, demote)
-    with span("stage2.pack", tl.device):
-        return hierarchical_pack(*fields, out_bytes)
-
-
-def _render_unit_fixed(qbytes, tl, td, se, demote: bool):
-    """The render of _render_pack_unit_fixed: (lo, hi, nbits) token
-    fields."""
-    tl = tl.to(I32)
-    td = td.to(I32)
-    U, N = tl.shape
-    pos = torch.arange(N, dtype=I32, device=tl.device)
-    is_match = (tl > 0) & se
-    lsm = length_code_arith(tl.clamp(min=3))
-    dsm = torch.where(is_match, dist_code_arith(td.clamp(min=1)), 0)
-    le_, lv_ = length_extra_arith(tl.clamp(min=3))
-    de_, dv_ = dist_extra_arith(td.clamp(min=1))
-    lit_code, lit_nb = _static_lit_code(qbytes)
-    mcode, mnb = _static_lit_code(lsm)
-    dcode_all = _bitrev16(dsm) >> 11                          # 5-bit codes
-
-    if demote:
-        # a selected match whose static bits exceed its span's literal bits
-        # (8 or 9 each: every byte has a code) becomes literals
-        match_bits = mnb + le_ + 5 + de_
-        csum = torch.cat([torch.zeros_like(lit_nb[:, :1]),
-                          torch.cumsum(lit_nb, 1, dtype=I32)], 1)
-        endq = (pos + tl).clamp(0, N).long()
-        span_bits = csum.gather(1, endq) - csum[:, :-1]
-        demote_m = is_match & (match_bits > span_bits)
-        end_max = torch.where(demote_m, pos + tl, 0).cummax(1).values
-        covered = pos < end_max
-        se = se | covered
-        is_match = is_match & ~covered
-
-    fm = is_match
-    code0 = torch.where(fm, mcode, lit_code).to(torch.int64)
-    n0 = torch.where(fm, mnb, lit_nb)
-    le = torch.where(fm, le_, 0)
-    lv = torch.where(fm, lv_, 0)
-    dcode = torch.where(fm, dcode_all, 0)
-    dn = torch.where(fm, 5, 0)
-    de = torch.where(fm, de_, 0)
-    dv = torch.where(fm, dv_, 0)
-    lo, hi = code0, torch.zeros_like(code0)
-    sh = n0
-    lo, hi = _or_field(lo, hi, lv, sh)
-    sh = sh + le
-    lo, hi = _or_field(lo, hi, dcode, sh)
-    sh = sh + dn
-    lo, hi = _or_field(lo, hi, dv, sh)
-    nb = torch.where(se, n0 + le + dn + de, 0).to(I32)
-    lo = torch.where(se, lo, 0)
-    hi = torch.where(se, hi, 0)
-    return lo, hi, nb
-
-
 def _stage2_fixed(flat, tok_len, tok_dist, sel, lane_block: int,
-                  out_bytes: int, demote: bool = True):
+                  out_bytes: int, demote: bool):
     """Fixed-tree stage 2 over a lane group (the deflate_quick design
-    point): static codes in closed form, so no table, tree build or
-    frequency fetch. Returns (packed (B, qpl, out_bytes) uint8,
-    totals (B, qpl) int32 body bits)."""
+    point): the render against the static code tables, no tree build or
+    frequency fetch, then the pack. `demote` turns on the cost-model match
+    demotion (Z_FIXED); L1 emits every match. Returns (packed (B, qpl,
+    out_bytes) uint8, totals (B, qpl) int32 body bits)."""
     qpl = lane_block // UNIT
     B = tok_len.shape[0]
     G = B * qpl
+    dev = flat.device
     pay = _lane_slices(flat, LANE_HIST, lane_block, lane_block, B)
-    packed, totals = _render_pack_unit_fixed(
-        pay.reshape(G, UNIT), tok_len[:, LANE_HIST:].reshape(G, UNIT),
-        tok_dist[:, LANE_HIST:].reshape(G, UNIT),
-        sel[:, LANE_HIST:].reshape(G, UNIT), out_bytes, demote)
+    C = code_tables(dev)
+    with span("stage2.render", dev):
+        fields = render_tokens(
+            pay.reshape(G, UNIT), *(t[:, LANE_HIST:].reshape(G, UNIT)
+                                    for t in (tok_len, tok_dist, sel)),
+            C["fl288"], C["flc"], C["fdl"], C["fdc"], demote=demote)
+    with span("stage2.pack", dev):
+        packed, totals = hierarchical_pack(*fields, out_bytes)
     return packed.reshape(B, qpl, out_bytes), totals.reshape(B, qpl)
 
 
@@ -593,10 +441,7 @@ def _header_tokens_to_arrays(tokens: list[tuple[int, int]]):
 def _extra_bits_batch(lfreqs: np.ndarray, dfreqs: np.ndarray) -> np.ndarray:
     """Length and distance extra bits of each row's symbols: (U, 286),
     (U, 30) int64 -> (U,) int64."""
-    lext = np.zeros(286, np.int64)
-    lext[257:286] = LENGTH_EXTRA[:29]
-    dext = DIST_EXTRA[:30].astype(np.int64)
-    return lfreqs @ lext + dfreqs @ dext
+    return lfreqs @ LEXT.astype(np.int64) + dfreqs @ DEXT.astype(np.int64)
 
 
 def _est_block_bits_batch(lfreqs: np.ndarray, dfreqs: np.ndarray,

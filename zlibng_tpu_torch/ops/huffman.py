@@ -24,22 +24,23 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from .. import _build
 from ..format.constants import (
-    BL_ORDER, MAX_BITS, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
+    MAX_BITS, MAX_BL_BITS, REP_3_6, REPZ_3_10, REPZ_11_138,
 )
-from ..trace import count, item, upload
+from ..trace import item, upload
+from .bitpack import code_tables
 
 I32 = torch.int32
 
-# kernel launches so far (a run resets it to show which path it took)
-launches = 0
-
 _DMAX = 64          # depth histogram size (tree depth < 64 for any n <= 320)
 _FBIG = 1 << 22     # > any frequency this codec feeds (unit sums <= 2^17)
+
+
+# `launches`: huff_build kernel launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("huffman")
 
 
 def _phase1_scan(a: torch.Tensor, m: torch.Tensor, n: int) -> torch.Tensor:
@@ -195,11 +196,6 @@ def huff_table(freqs: torch.Tensor, max_bits: int):
 # ---------------------------------------------------------------------------
 # Dynamic-block header (scan_tree RLE + bit-length tree + token assembly)
 # ---------------------------------------------------------------------------
-_CL_EXTRA_TAB = np.zeros(19, np.int32)
-_CL_EXTRA_TAB[REP_3_6] = 2
-_CL_EXTRA_TAB[REPZ_3_10] = 3
-_CL_EXTRA_TAB[REPZ_11_138] = 7
-
 _L_TOT = 286 + 30       # concatenated lengths array (hlit + hdist <= 316)
 _TMAX = 320             # RLE tokens: singles <= L_TOT, reps cover >= 3 each
 # slot 0 block header, slot 1 hlit/hdist/hclen, slots 2..20 perm,
@@ -309,11 +305,11 @@ def dyn_header(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
         1, torch.where(live, syms, 19).long(), torch.ones_like(syms))[:, :19]
     cl_len, cl_code = huff_table(cl_freqs, MAX_BL_BITS)
 
-    perm = cl_len[:, upload(np.asarray(BL_ORDER, np.int64), dev)]
+    C = code_tables(dev)
+    perm = cl_len[:, C["bl_order"]]
     i19 = torch.arange(19, dtype=I32, device=dev)
     hclen = torch.clamp(torch.where(perm > 0, i19 + 1, 0).max(1).values, min=4)
 
-    ext_tab = upload(_CL_EXTRA_TAB, dev)
     lo = torch.zeros((G, HDR_SLOTS), dtype=torch.int64, device=dev)
     nb = torch.zeros((G, HDR_SLOTS), dtype=I32, device=dev)
     lo[:, 0] = btype_bits
@@ -325,7 +321,7 @@ def dyn_header(lit_lengths: torch.Tensor, dist_lengths: torch.Tensor,
     sl = syms.long()
     cl_lo = torch.where(live, cl_code.gather(1, sl), 0)
     cl_nb = torch.where(live, cl_len.gather(1, sl), 0)
-    ex_nb = torch.where(live & (extras >= 0), ext_tab[sl], 0)
+    ex_nb = torch.where(live & (extras >= 0), C["cl_extra"][sl], 0)
     ex_lo = torch.where(ex_nb > 0, extras, 0)
     lo[:, 21::2] = cl_lo.long()
     nb[:, 21::2] = cl_nb.to(I32)
@@ -361,19 +357,11 @@ def _huff_build_plain(lfreq: torch.Tensor, dfreq: torch.Tensor,
 def _huff_build_cuda(lfreq: torch.Tensor, dfreq: torch.Tensor,
                      btype_bits: int):
     """Runs the kernel on CUDA tensors: one launch on the current stream."""
-    global launches
-    for t in (lfreq, dfreq):
-        if t.dtype != I32:
-            raise ValueError("huffman kernel takes int32 frequencies")
-        if not t.is_contiguous():
-            raise ValueError("huffman kernel takes contiguous frequencies")
-        if not t.is_cuda or t.device != lfreq.device:
-            raise ValueError("huffman kernel takes CUDA tensors on one card")
+    dev = _build.check_int32("huffman kernel", lfreq, dfreq)
     G = lfreq.shape[0]
     if lfreq.shape != (G, 286) or dfreq.shape != (G, 30):
         raise ValueError("huffman kernel: frequencies must be (G, 286) and "
                          "(G, 30)")
-    dev = lfreq.device
     out = (torch.empty((G, 286), dtype=I32, device=dev),
            torch.empty((G, 286), dtype=I32, device=dev),
            torch.empty((G, 30), dtype=I32, device=dev),
@@ -381,14 +369,6 @@ def _huff_build_cuda(lfreq: torch.Tensor, dfreq: torch.Tensor,
            torch.empty((G, HDR_SLOTS), dtype=torch.int64, device=dev),
            torch.empty((G, HDR_SLOTS), dtype=I32, device=dev),
            torch.empty(G, dtype=I32, device=dev))
-    if G == 0:
-        return out
-    fn = _build.kernel("huffman")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(lfreq.data_ptr(), dfreq.data_ptr(),
-                 *(t.data_ptr() for t in out), G, btype_bits, stream)
-    _build.check(err, "huffman kernel")
-    launches += 1
-    count("huffman.launches")
+    if G:
+        _build.launch("huffman", dev, lfreq, dfreq, *out, G, btype_bits)
     return out

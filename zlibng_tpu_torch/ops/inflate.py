@@ -40,7 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from ..errors import DataError as InflateError
-from ..format.constants import DIST_BASE, LENGTH_BASE
 from ..stream import inflate_serial as _serial
 from ..stream.inflate_serial import (
     _S_BLOCK_HEADER, _S_HUFF, _S_STORED, NEED_INPUT, RawInflater,
@@ -48,6 +47,7 @@ from ..stream.inflate_serial import (
 from .. import _build
 from .. import trace as _trace
 from ..trace import count, fetch, item, span, trace, upload
+from .bitpack import code_tables
 from .deflate import _device
 from .parse import parse_select
 
@@ -70,9 +70,9 @@ _CB_BUCKETS = (1 << 11, 1 << 14, 1 << 15, 1 << 17)
 _DPAD = 1 << 15          # dictionary/window prefix region in phase B
 _BIG = 1 << 26           # chain-terminating step
 
-# flat-LUT kernel launches so far (a run resets it to show which path it
-# took)
-launches = 0
+
+# `launches`: flat-LUT kernel launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("flat_luts")
 
 # Above this size, an unindexed single stream decodes on the host: without
 # known segment boundaries the device path round-trips once per DEFLATE
@@ -118,12 +118,6 @@ class _Fallback(Exception):
     """Internal: this stream needs the serial conformance path."""
 
 
-@functools.lru_cache(maxsize=8)
-def _code_bases(dev: str) -> tuple[torch.Tensor, torch.Tensor]:
-    return (upload(LENGTH_BASE.astype(np.int32), dev),
-            upload(DIST_BASE.astype(np.int32), dev))
-
-
 # ---------------------------------------------------------------------------
 # phase A — batched speculative token resolution
 # ---------------------------------------------------------------------------
@@ -155,13 +149,6 @@ def _build_flat_luts_cuda(tabs: torch.Tensor, masks: torch.Tensor,
                           lut_cap: int) -> torch.Tensor:
     """Runs the kernel on CUDA tensors: one launch on the current stream,
     checking only what needs no wait for the card."""
-    global launches
-    for t in (tabs, masks):
-        if t.dtype != I32:
-            raise ValueError("flat_luts kernel takes int32 tables and masks")
-        if not t.is_contiguous():
-            raise ValueError("flat_luts kernel takes contiguous tables and "
-                             "masks")
     if tabs.dim() != 2 or tabs.shape[1] <= 48 \
             or masks.shape != (tabs.shape[0],):
         raise ValueError("flat_luts kernel: tables must be (B, 48 + nsyms) "
@@ -172,20 +159,11 @@ def _build_flat_luts_cuda(tabs: torch.Tensor, masks: torch.Tensor,
     B = tabs.shape[0]
     if B > 65535:
         raise ValueError(f"flat_luts kernel: {B} lanes, at most 65535")
-    if not tabs.is_cuda or masks.device != tabs.device:
-        raise ValueError("flat_luts kernel takes CUDA tensors on one card")
-    dev = tabs.device
+    dev = _build.check_int32("flat_luts kernel", tabs, masks)
     out = torch.empty((B, lut_cap), dtype=I32, device=dev)
-    if B == 0:
-        return out
-    fn = _build.kernel("flat_luts")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tabs.data_ptr(), masks.data_ptr(), out.data_ptr(), B,
-                 tabs.shape[1] - 48, lut_cap, stream)
-    _build.check(err, "flat_luts kernel")
-    launches += 1
-    count("phase_a.luts.launches")
+    if B:
+        _build.launch("flat_luts", dev, tabs, masks, out, B,
+                      tabs.shape[1] - 48, lut_cap)
     return out
 
 
@@ -264,7 +242,8 @@ def _decode_every_bit(comp, byte_starts, lit_luts, dist_luts, start_bits,
               + torch.arange(CB, dtype=I64, device=dev)[None, :])
     lane_bytes = comp[lb_idx]
     N = CB * 8
-    LB, DB = _code_bases(str(dev))
+    C = code_tables(dev)
+    LB, DB = C["lbase"], C["dbase"]
 
     # LE 32-bit word at every byte offset, held in int64 (uint32 values)
     lb = F.pad(lane_bytes.long(), (0, 8))

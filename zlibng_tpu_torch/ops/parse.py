@@ -17,13 +17,15 @@ import torch
 
 from .. import _build
 
-# kernel launches so far (a run resets it to show which path it took)
-launches = 0
 # csrc/parse.cu's kSeg and kLead: positions per phase-1 segment, and the
 # lead-in its speculative walk starts before each segment (>= 2 x 258, the
 # longest match)
 SEG = 2048
 LEAD = 512
+
+
+# `launches`: K2 launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("parse")
 
 
 def _reachable_plain(nxt: torch.Tensor, start: torch.Tensor,
@@ -68,29 +70,18 @@ def _parse_select_plain(step: torch.Tensor, bounds: torch.Tensor):
 def _parse_select_cuda(step: torch.Tensor, bounds: torch.Tensor):
     """Runs K2 on CUDA tensors: returns the (B, N) bool mask and the (B, 2)
     int32 count of segments each lane's stitch repaired and cleared."""
-    global launches
     B, N = step.shape
-    for t in (step, bounds):
-        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError(
-                "parse kernel takes contiguous int32 CUDA tensors")
+    dev = _build.check_int32("parse kernel", step, bounds)
     if bounds.shape != (B, 2):
         raise ValueError("parse kernel: bounds must be (B, 2)")
     if B > 65535:
         raise ValueError("parse kernel: needs B <= 65535")
-    dev = step.device
     sel = torch.empty((B, N), dtype=torch.bool, device=dev)
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     if B == 0 or N == 0:
         return sel, stats.zero_()
-    fn = _build.kernel("parse")
     guess = torch.empty((B, -(-N // SEG), 2), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(step.data_ptr(), bounds.data_ptr(), sel.data_ptr(),
-                 guess.data_ptr(), stats.data_ptr(), B, N, stream)
-    _build.check(err, "parse kernel")
-    launches += 1
+    _build.launch("parse", dev, step, bounds, sel, guess, stats, B, N)
     return sel, stats
 
 

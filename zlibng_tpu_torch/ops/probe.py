@@ -18,13 +18,14 @@ from ..format.constants import WINDOW_SIZE
 
 NEG = -(1 << 30)
 
-# kernel launches so far (a run resets it to show which path it took)
-launches = 0
 # look-behind rows K1 stages in shared memory per 256-row tile (capped at
 # the chain): chains up to HALO walk in shared memory alone; deeper probes
 # read global memory
 HALO = 1024
-_fn = None
+
+
+# `launches`: K1 launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("probe")
 
 
 def _ctz_bytes32(x: torch.Tensor) -> torch.Tensor:
@@ -78,45 +79,20 @@ def _probe_best_plain(w2_s, h_sorted, pos_s, hist_valid_from, dense: int,
 def _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from, dense, gate_depth,
                      good_l16, max_dist, chain, enc_start, enc_end,
                      halo=HALO):
-    global launches, _fn
     B, N, W = w2_s.shape
-    dev = w2_s.device
-    i32 = torch.int32
-    if not (w2_s.dtype == h_sorted.dtype == pos_s.dtype
-            == hist_valid_from.dtype == i32
-            and h_sorted.device == pos_s.device == hist_valid_from.device
-            == dev and w2_s.is_contiguous() and h_sorted.is_contiguous()
-            and pos_s.is_contiguous() and hist_valid_from.is_contiguous()):
-        raise ValueError("probe kernel takes contiguous int32 CUDA tensors "
-                         "on one device")
+    deep = chain > dense                   # only the deep probes read enc_end
+    dev = _build.check_int32("probe kernel", w2_s, h_sorted, pos_s,
+                             hist_valid_from, *([enc_end] if deep else []))
     if h_sorted.shape != (B, N) or pos_s.shape != (B, N) \
-            or hist_valid_from.shape != (B,) or W not in (2, 4):
+            or hist_valid_from.shape != (B,) or W not in (2, 4) \
+            or (deep and enc_end.shape != (B,)):
         raise ValueError("probe kernel: bad shapes")
-    ee = 0
-    if chain > dense:
-        if not (enc_end.dtype == i32 and enc_end.device == dev
-                and enc_end.shape == (B,) and enc_end.is_contiguous()):
-            raise ValueError("probe kernel: enc_end must be a contiguous "
-                             "(B,) int32 tensor on the probe's device")
-        ee = enc_end.data_ptr()
-    if dev.index != torch.cuda.current_device():
-        with torch.cuda.device(dev):
-            return _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from,
-                                    dense, gate_depth, good_l16, max_dist,
-                                    chain, enc_start, enc_end, halo)
-    if _fn is None:
-        _fn = _build.kernel("probe")
-    # one allocation for both results; the raw stream handle skips the
-    # Stream object (at dense 2 this host work is as long as the kernel)
-    out = torch.empty((2, B, N), dtype=i32, device=dev)
-    base = out.data_ptr()
-    err = _fn(w2_s.data_ptr(), h_sorted.data_ptr(), pos_s.data_ptr(),
-              hist_valid_from.data_ptr(), ee, base, base + 4 * B * N, B, N, W,
-              halo, dense, chain, gate_depth, good_l16, max_dist, enc_start,
-              torch._C._cuda_getCurrentRawStream(dev.index))
-    _build.check(err, "probe kernel")
-    launches += 1
-    return out.unbind(0)
+    score, cand = torch.empty((2, B, N), dtype=torch.int32,
+                              device=dev).unbind(0)
+    _build.launch("probe", dev, w2_s, h_sorted, pos_s, hist_valid_from,
+                  enc_end if deep else 0, score, cand, B, N, W, halo, dense,
+                  chain, gate_depth, good_l16, max_dist, enc_start)
+    return score, cand
 
 
 def probe_best(w2_s, h_sorted, pos_s, hist_valid_from, dense: int,

@@ -52,16 +52,13 @@ from ..format.constants import (
 from ..huffman.encode import build_dynamic_header, huffman_table
 from ..ops import deflate as _deflate
 from ..ops import inflate as IT
-from ..ops.bitpack import render_body_tokens
+from ..ops.bitpack import code_tables, render_tokens
 from ..ops.bitpack_merge import hierarchical_pack
 from ..ops.deflate import (
     HMAX, _BitStitcher, _device, _est_block_bits_batch, _extra_bits_batch,
     _header_tokens_to_arrays, _lane_slices,
 )
-from ..ops.lz77 import (
-    dist_code_arith, finalize_tokens, lane_freqs, length_code_arith,
-    lz77_lane,
-)
+from ..ops.lz77 import finalize_tokens, lane_freqs, lz77_lane
 from ..ops.parse import parse_select_encode
 from ..stream.deflate import LEVELS
 from ..trace import call, count, fetch, span, upload
@@ -239,11 +236,6 @@ def make_compress_step(shards: Shards, lane_size: int, out_max: int,
       int32 per local shard], all_bits (B,) int32 (every shard's, gathered),
       adler (count,) int64 per-shard payload checksums (combinable).
     """
-    fll = torch.as_tensor(FIXED_LIT_LENGTHS.astype(np.int32))
-    flc = torch.as_tensor(FIXED_LIT_CODES_REV.astype(np.int32))
-    fdl = torch.as_tensor(FIXED_DIST_LENGTHS.astype(np.int32))
-    fdc = torch.as_tensor(FIXED_DIST_CODES_REV.astype(np.int32))
-
     def shard_fn(lanes, es, enc_starts, enc_ends, hist_valids):
         B, N = lanes.shape
         dev = lanes.device
@@ -252,16 +244,17 @@ def make_compress_step(shards: Shards, lane_size: int, out_max: int,
         bounds = torch.stack([enc_starts, enc_ends], 1).to(I32).contiguous()
         sel = parse_select_encode(core["step"], bounds)
         outs = finalize_tokens(lanes, core, sel)
-        tabs = [t.to(dev).expand(B, -1) for t in (fll, flc, fdl, fdc)]
-        lo, hi, nb = render_body_tokens(
-            outs["tok_len"], outs["tok_dist"], outs["lsym"], outs["dsym"],
-            outs["sel"], *tabs)
+        C = code_tables(dev)
+        lo, hi, nb = render_tokens(lanes, outs["tok_len"], outs["tok_dist"],
+                                   outs["sel"], C["fl288"], C["flc"],
+                                   C["fdl"], C["fdc"])
         # static block header (BFINAL=0 within shards) + EOB
         hdr_lo = torch.full((B, 1), 2, dtype=I64, device=dev)
         hdr_nb = torch.full((B, 1), 3, dtype=I32, device=dev)
         return _emit_packed(lanes, lo, hi, nb, hdr_lo,
-                            torch.zeros_like(hdr_lo), hdr_nb, tabs[0],
-                            tabs[1], enc_starts, enc_ends, out_max)
+                            torch.zeros_like(hdr_lo), hdr_nb,
+                            C["fl288"].expand(B, -1), C["flc"].expand(B, -1),
+                            enc_starts, enc_ends, out_max)
 
     def step(lanes, enc_starts, enc_ends, hist_valids):
         es = _one_enc_start(enc_starts)
@@ -330,13 +323,7 @@ def make_stage2_step(shards: Shards, out_max: int, lane_block: int,
 
     def shard_fn(flat, tl, td, se, hlo, hhi, hnb, lt, lc, dt, dc, es, ee):
         lanes = _lane_slices(flat[0], 0, lane_block, lane_sz, es.shape[0])
-        tl = tl.to(I32)
-        td = td.to(I32)
-        is_match = tl > 0
-        ls = torch.where(is_match, length_code_arith(tl.clamp(min=3)),
-                         lanes.to(I32))
-        ds = torch.where(is_match, dist_code_arith(td.clamp(min=1)), 0)
-        lo, hi, nb = render_body_tokens(tl, td, ls, ds, se, lt, lc, dt, dc)
+        lo, hi, nb = render_tokens(lanes, tl, td, se, lt, lc, dt, dc)
         return _emit_packed(lanes, lo, hi, nb, hlo, hhi, hnb, lt, lc, es, ee,
                             out_max)
 
