@@ -46,11 +46,14 @@ same-hash runs around its halo, with every history bound, encode range
 and chain of WALK_CASES; K2 also on raw steps, on
 step arrays that defeat its speculation or test its step arithmetic, on
 edge bounds, and on decode phase A's bit steps at 16 lanes of 1,048,576
-bits), and last runs torch.profiler: K1's device time per operating
-point (one kernel per call), K2's device time by phase, the plain deep
-probes' launches, one lane group at L6, L1 and Z_FIXED (with stage 1's
-share of its launches, counted in the same session), and one warm indexed
-decode (device events, idle share, top kernels). Prints
+bits), stage 2's pack kernel (one launch per pack call: 2 per L6 lane
+group, 1 per quick group, counted on the main paths) at its three call
+sites on the corpus's own tokens, and last runs torch.profiler: K1's
+device time per operating point (one kernel per call), K2's device time
+by phase, the plain deep probes' launches, one lane group at L6, L1 and
+Z_FIXED (with stage 1's share of its launches, counted in the same
+session), and one warm indexed decode (device events, idle share, top
+kernels). Prints
 per-phase seconds, per-kernel timings, a `kernels` JSON line, the card's
 name and power limit, and as its last line {"ok": true, "device": {...}}.
 Exits non-zero, without that line, when any phase fails or no CUDA device
@@ -680,10 +683,12 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     with the CPU port (1 MiB prefix, whole corpus) and with the
     reference's pinned digest."""
     from zlibng_tpu_torch import compress_cuda
-    from zlibng_tpu_torch.ops import deflate, huffman, parse, probe
+    from zlibng_tpu_torch.ops import (
+        bitpack_merge, deflate, huffman, parse, probe,
+    )
     name = _name(level, strategy)
     kw = dict(strategy=strategy)
-    _reset_launches("probe", "parse", "huffman")
+    _reset_launches("probe", "parse", "huffman", "bitpack")
     t0 = time.perf_counter()
     out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
@@ -696,6 +701,15 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     huf = huffman.launches
     if (huf > 0) != (level > 1 and strategy != 4):
         raise AssertionError(f"{name}: {huf} Huffman kernel launches")
+    # the pack kernel: bodies and headers of each auto group and redispatch,
+    # one launch per quick group with a coded unit
+    packs = bitpack_merge.launches
+    st = deflate.stage_seconds
+    want = (2 * (st["stage2.groups.n"] + st["stage2.redispatch.n"])
+            if huf else packs)
+    if packs == 0 or packs != want or st["bitpack.launches.n"] != packs:
+        raise AssertionError(f"{name}: {packs} pack kernel launches, "
+                             f"expected {want}")
     if zlib.decompress(out) != data:
         raise AssertionError(f"{name}: zlib round trip failed")
     digest = (len(out), hashlib.sha256(out).hexdigest()[:16])
@@ -722,14 +736,14 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
           f"(ratio {len(out) / len(data):.4f}, sha256 {digest[1]}, equal to "
           f"compress_tpu's); zlib round trip ok; equal to the CPU port on "
           f"the 1 MiB prefix and on the whole corpus ({cpu_s:.1f} s on the "
-          f"host); launches {launches}, Huffman {huf}; cold {cold:.3f} s, "
-          f"warm {warm:.3f} s "
+          f"host); launches {launches}, Huffman {huf}, pack {packs}; cold "
+          f"{cold:.3f} s, warm {warm:.3f} s "
           f"= {mbs:.3f} MB/s; warm stages: stage1 {stages['stage1']:.3f} s, "
           f"stage2 {stages['stage2']:.3f} s, stitch {stages['stitch']:.3f} s",
           flush=True)
     return dict(level=level, launches=launches, huffman_launches=huf,
-                size=len(out), warm_s=warm, mb_s=mbs, stages=stages,
-                stream=out)
+                bitpack_launches=packs, size=len(out), warm_s=warm, mb_s=mbs,
+                stages=stages, stream=out)
 
 
 def huffman_groups(data: bytes, device="cuda") -> list:
@@ -782,6 +796,69 @@ def check_huffman(data: bytes) -> list:
               f"{b_ms:.5f} ms ({by}, {nbytes} B)", flush=True)
         rows.append(dict(G=G, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=by, max_abs_err=0))
+    return rows
+
+
+def pack_calls(fn, module) -> list:
+    """(lo, hi, nbits, out_bytes, outputs) of every pack_rows call that
+    module (ops/deflate.py or parallel/sharded.py) makes while fn() runs."""
+    seen = []
+    pack = module.pack_rows
+
+    def record(lo, hi, nbits, out_bytes):
+        out = pack(lo, hi, nbits, out_bytes)
+        seen.append((lo.clone(), hi.clone(), nbits.clone(), out_bytes, out))
+        return out
+    module.pack_rows = record
+    try:
+        fn()
+    finally:
+        module.pack_rows = pack
+    return seen
+
+
+def check_bitpack(data: bytes) -> list:
+    """Stage 2's pack kernel (csrc/bitpack.cu) at the three call sites'
+    operating points, on the corpus's own tokens: the first L6 lane group's
+    bodies and headers, the first L1 group's bodies, and one shard's lanes
+    of compress_multichip in pigz's layout (four shards on the card, 128
+    KiB lanes). Each: the call's outputs equal to the plain pack run on
+    the card, then the kernel, its device time (torch.profiler) and the
+    plain pack timed per call between CUDA events."""
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import bitpack_merge, deflate
+    from zlibng_tpu_torch.parallel import sharded
+    l6 = pack_calls(lambda: compress_cuda(data, 6), deflate)
+    l1 = pack_calls(lambda: compress_cuda(data, 1), deflate)
+    sh = pack_calls(lambda: sharded.compress_multichip(
+        data, [CARD] * 4, lane_block=1 << 17), sharded)
+    points = (("L6 bodies", l6[0]), ("L6 headers", l6[1]),
+              ("L1 bodies", l1[0]), ("sharded lanes", sh[0]))
+    rows = []
+    for name, (lo, hi, nb, ob, got) in points:
+        R, T = nb.shape
+        want = bitpack_merge.hierarchical_pack(lo, hi, nb, ob)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"pack kernel, {name}: differs from the "
+                                 "plain pack")
+        run = (lambda lo=lo, hi=hi, nb=nb, ob=ob:
+               bitpack_merge._pack_rows_cuda(lo, hi, nb, ob))
+        ms = timed(run, 50)
+        dev = device_ms(run, 50, "bitpack")
+        plain_ms = timed(lambda lo=lo, hi=hi, nb=nb, ob=ob:
+                         bitpack_merge.hierarchical_pack(lo, hi, nb, ob), 5)
+        # bytes: every token read once (lo, hi, nbits), every row written
+        nbytes = R * T * 20 + R * ob + 4 * R
+        b_ms, by = bound(nbytes, 0)
+        dev_ms = sum(dev.values()) if dev else None
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"pack kernel, {name} ({R} x {T} -> {ob} B): equal to plain; "
+              f"kernel {ms:.4f} ms per call (device {dev_txt}); plain "
+              f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}, {nbytes} B)",
+              flush=True)
+        rows.append(dict(name=name, R=R, T=T, out_bytes=ob, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, max_abs_err=0))
     return rows
 
 
@@ -1946,6 +2023,7 @@ def main() -> int:
                           indexed.pop("wave"), k2, indexed["launches"]))
     deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
     huf_rows = phase("Huffman kernel check", check_huffman, data)
+    bitpack_rows = phase("pack kernel check", check_bitpack, data)
     lut_rows = phase("flat LUT kernel check", check_flat_luts,
                      dict(indexed, data=data))
     check_estimate(lanes)
@@ -2003,6 +2081,16 @@ def main() -> int:
             name=f"huff_build (G = {row['G']})", route="cuda",
             source=src + "huffman.cu", replaces=None,
             launches=runs[6, 0]["huffman_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row["device_ms"]))
+    for row in bitpack_rows:
+        kernels.append(dict(
+            name=f"bitpack ({row['name']}, {row['R']} x {row['T']} -> "
+                 f"{row['out_bytes']} B)", route="cuda",
+            source=src + "bitpack.cu", replaces=None,
+            launches=runs[6, 0]["bitpack_launches"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

@@ -6,7 +6,7 @@ by a hash of the source and the flags; a later process reuses it. Libraries
 are loaded with ctypes. A missing nvcc or a failed build raises: there is
 no other route to the kernels. Every kernel launches through `launch`, on
 its card's current stream, and its wrapper checks its tensors with
-`check_int32`; a new kernel needs its `.cu` file, a `_SIGNATURES` entry
+`check_cuda`; a new kernel needs its `.cu` file, a `_SIGNATURES` entry
 whose last argument is the stream, and a wrapper that checks its shapes,
 allocates its outputs and calls `launch`.
 """
@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("probe", "parse", "huffman", "flat_luts")
+KERNELS = ("probe", "parse", "huffman", "flat_luts", "bitpack")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # C signatures: pointers as c_void_p (a bare int would be cut to 32 bits)
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
     "huffman": ("zng_huff_build", [_P] * 9 + [_I] * 2 + [_P]),
     "flat_luts": ("zng_flat_luts", [_P] * 3 + [_I] * 3 + [_P]),
+    "bitpack": ("zng_bitpack", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -112,15 +113,18 @@ def kernel(name: str):
         return fn
 
 
-def check_int32(what: str, *tensors) -> torch.device:
-    """The card of `tensors`, which must be contiguous int32 CUDA tensors
-    on one card (ValueError otherwise)."""
-    dev = tensors[0].device
+def check_cuda(what: str, *tensors, dtype=torch.int32,
+               dev: torch.device | None = None) -> torch.device:
+    """The card of `tensors`, which must be contiguous CUDA tensors of
+    `dtype` on one card, `dev` when given (ValueError otherwise). A kernel
+    reads its inputs as they are: no cast, so no launch."""
+    dev = tensors[0].device if dev is None else dev
     for t in tensors:
-        if t.dtype != torch.int32 or not t.is_contiguous() or not t.is_cuda \
+        if t.dtype != dtype or not t.is_contiguous() or not t.is_cuda \
                 or t.device != dev:
-            raise ValueError(f"{what} takes contiguous int32 CUDA tensors "
-                             "on one card")
+            raise ValueError(f"{what} takes contiguous "
+                             f"{str(dtype).removeprefix('torch.')} CUDA "
+                             "tensors on one card")
     return dev
 
 

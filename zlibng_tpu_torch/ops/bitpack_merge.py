@@ -1,17 +1,67 @@
-"""Bit packing by windowed limb merge + window placement, batched over
+"""Bit packing of token rows into LSB-first byte streams, batched over
 rows (counterpart of `zlibng_tpu/ops/bitpack_merge.py`).
 
-Every token is a little-endian string of two u32 limbs; strings are
-concatenated pairwise within windows of 128 tokens (limb caps <= 256), the
-window strings are unpacked to bytes, shifted to their global bit phase
-and OR-placed into the output. u32 limbs are held in int64 tensors.
+`pack_rows` is the pack of every compress route: on CUDA tensors one
+launch of the hand-written kernel `csrc/bitpack.cu`, one block per row; on
+CPU tensors `hierarchical_pack`, the plain version, which stays its
+readable twin: every token is a little-endian string of two u32 limbs;
+strings are concatenated pairwise within windows of 128 tokens (limb caps
+<= 256), the window strings are unpacked to bytes, shifted to their global
+bit phase and OR-placed into the output. u32 limbs are held in int64
+tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _build
+
 WINDOW = 128         # tokens merged pairwise per window
 _M32 = 0xFFFFFFFF
+_MAX_T = 1 << 25     # tokens a row: its bits (<= 64 each) fit an int32
+
+# `launches`: bitpack kernel launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("bitpack")
+
+
+def pack_rows(lo: torch.Tensor, hi: torch.Tensor, nbits: torch.Tensor,
+              out_bytes: int):
+    """Pack (R, T) token rows (lo, hi u32 halves in int64; nbits int32 in
+    [0, 63]) into R LSB-first byte streams, each cut to out_bytes bytes
+    and zero-filled after its end. Returns (bytes (R, out_bytes) uint8,
+    total_bits (R,) int32: each stream's whole length, also where it
+    overflows out_bytes). CUDA tensors: one launch of the kernel
+    `csrc/bitpack.cu` on the current stream (or it raises); CPU tensors:
+    the plain version, `hierarchical_pack`; any other device raises. The
+    two are equal byte for byte."""
+    if nbits.is_cuda:
+        return _pack_rows_cuda(lo, hi, nbits, out_bytes)
+    if nbits.device.type != "cpu":
+        raise ValueError(f"pack_rows: unsupported device {nbits.device}")
+    return hierarchical_pack(lo, hi, nbits, out_bytes)
+
+
+def _pack_rows_cuda(lo: torch.Tensor, hi: torch.Tensor, nbits: torch.Tensor,
+                    out_bytes: int):
+    """Runs the kernel on CUDA tensors, read as they are (lo and hi int64,
+    nbits int32, no cast): one launch, checking only what needs no wait
+    for the card."""
+    if nbits.dim() != 2 or lo.shape != nbits.shape or hi.shape != nbits.shape:
+        raise ValueError("bitpack kernel: lo, hi and nbits must be (R, T) "
+                         "alike")
+    R, T = nbits.shape
+    if not 0 <= out_bytes < 1 << 31 or T > _MAX_T or R >= 1 << 31:
+        raise ValueError(f"bitpack kernel: {R} rows of {T} tokens into "
+                         f"{out_bytes} bytes; it takes out_bytes in "
+                         f"[0, 2^31), T <= 2^25 and R < 2^31")
+    dev = _build.check_cuda("bitpack kernel", lo, hi, dtype=torch.int64)
+    _build.check_cuda("bitpack kernel", nbits, dev=dev)
+    out = torch.empty((R, out_bytes), dtype=torch.uint8, device=dev)
+    total = torch.empty(R, dtype=torch.int32, device=dev)
+    if R:
+        _build.launch("bitpack", dev, lo, hi, nbits, out, total, R, T,
+                      out_bytes)
+    return out, total
 
 
 def _bitshift_limbs(rows: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,8 @@ Counterpart of `zlibng_tpu/ops/deflate_tpu.py`:
           Huffman tables + dynamic headers [ops/huffman.py; one kernel
           per group, csrc/huffman.cu, on the card], block-type
           choice from exact bits, token render [ops/bitpack.py] + bit
-          pack [ops/bitpack_merge.py]; or the fixed-tree quick path (L1
+          pack [ops/bitpack_merge.py; one kernel per pack call,
+          csrc/bitpack.cu, on the card]; or the fixed-tree quick path (L1
           and Z_FIXED): each unit's exact static bits from stage 1, the
           same render against the static code tables, pack
   host:   fetch per-unit descriptors and the packed bytes; bit-level
@@ -44,7 +45,7 @@ from ..stream.deflate import (
 from ..stream.deflate import compress as compress_host
 from ..trace import count, fetch, span, trace, upload
 from .bitpack import DEXT, LEXT, code_tables, render_tokens
-from .bitpack_merge import hierarchical_pack
+from .bitpack_merge import pack_rows
 from .huffman import huff_build
 from .lz77 import finalize_tokens, lz77_lane, unit_freqs
 from .parse import parse_select_encode
@@ -245,8 +246,8 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
                 | (torch.where(has_eob, eob_code, 0) << 9))
 
     with span("stage2.pack", dev):
-        body_packed, body_bits = hierarchical_pack(*body, out_bytes)
-        hdr_packed, hdr_bits = hierarchical_pack(
+        body_packed, body_bits = pack_rows(*body, out_bytes)
+        hdr_packed, hdr_bits = pack_rows(
             hlo_u, torch.zeros_like(hlo_u), hnb_u, HDR_OUT)
         meta = torch.stack([body_bits, hdr_bits, desc.to(I32)], -1).to(I32)
     return (body_packed.reshape(B, qpl, out_bytes),
@@ -364,7 +365,7 @@ def _stage2_fixed(flat, tok_len, tok_dist, sel, lane_block: int,
                                     for t in (tok_len, tok_dist, sel)),
             C["fl288"], C["flc"], C["fdl"], C["fdc"], demote=demote)
     with span("stage2.pack", dev):
-        packed, totals = hierarchical_pack(*fields, out_bytes)
+        packed, totals = pack_rows(*fields, out_bytes)
     return packed.reshape(B, qpl, out_bytes), totals.reshape(B, qpl)
 
 

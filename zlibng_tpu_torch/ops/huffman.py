@@ -357,7 +357,7 @@ def _huff_build_plain(lfreq: torch.Tensor, dfreq: torch.Tensor,
 def _huff_build_cuda(lfreq: torch.Tensor, dfreq: torch.Tensor,
                      btype_bits: int):
     """Runs the kernel on CUDA tensors: one launch on the current stream."""
-    dev = _build.check_int32("huffman kernel", lfreq, dfreq)
+    dev = _build.check_cuda("huffman kernel", lfreq, dfreq)
     G = lfreq.shape[0]
     if lfreq.shape != (G, 286) or dfreq.shape != (G, 30):
         raise ValueError("huffman kernel: frequencies must be (G, 286) and "

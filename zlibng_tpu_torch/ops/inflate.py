@@ -159,7 +159,7 @@ def _build_flat_luts_cuda(tabs: torch.Tensor, masks: torch.Tensor,
     B = tabs.shape[0]
     if B > 65535:
         raise ValueError(f"flat_luts kernel: {B} lanes, at most 65535")
-    dev = _build.check_int32("flat_luts kernel", tabs, masks)
+    dev = _build.check_cuda("flat_luts kernel", tabs, masks)
     out = torch.empty((B, lut_cap), dtype=I32, device=dev)
     if B:
         _build.launch("flat_luts", dev, tabs, masks, out, B,

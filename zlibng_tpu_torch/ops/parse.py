@@ -71,7 +71,7 @@ def _parse_select_cuda(step: torch.Tensor, bounds: torch.Tensor):
     """Runs K2 on CUDA tensors: returns the (B, N) bool mask and the (B, 2)
     int32 count of segments each lane's stitch repaired and cleared."""
     B, N = step.shape
-    dev = _build.check_int32("parse kernel", step, bounds)
+    dev = _build.check_cuda("parse kernel", step, bounds)
     if bounds.shape != (B, 2):
         raise ValueError("parse kernel: bounds must be (B, 2)")
     if B > 65535:

@@ -81,8 +81,8 @@ def _probe_best_cuda(w2_s, h_sorted, pos_s, hist_valid_from, dense, gate_depth,
                      halo=HALO):
     B, N, W = w2_s.shape
     deep = chain > dense                   # only the deep probes read enc_end
-    dev = _build.check_int32("probe kernel", w2_s, h_sorted, pos_s,
-                             hist_valid_from, *([enc_end] if deep else []))
+    dev = _build.check_cuda("probe kernel", w2_s, h_sorted, pos_s,
+                            hist_valid_from, *([enc_end] if deep else []))
     if h_sorted.shape != (B, N) or pos_s.shape != (B, N) \
             or hist_valid_from.shape != (B,) or W not in (2, 4) \
             or (deep and enc_end.shape != (B,)):

@@ -21,8 +21,9 @@ not. A device may repeat (`[cuda:0] * 8` runs eight shards on one card).
   * decode runs phase A lanes and phase B segments across the shards
     through the wave engine's seams (`ops/inflate.py:_decode_segments`).
 
-On a card every shard reaches K1 and K2 through their wrappers, which
-launch the CUDA kernels for CUDA tensors; CPU shards run the plain
+On a card every shard reaches K1, K2 and the pack (`pack_rows`, one
+launch of `csrc/bitpack.cu` per shard and step) through their wrappers,
+which launch the CUDA kernels for CUDA tensors; CPU shards run the plain
 versions.
 
 `compress_multichip` opens a trace root (`trace.py`) whose spans and
@@ -53,7 +54,7 @@ from ..huffman.encode import build_dynamic_header, huffman_table
 from ..ops import deflate as _deflate
 from ..ops import inflate as IT
 from ..ops.bitpack import code_tables, render_tokens
-from ..ops.bitpack_merge import hierarchical_pack
+from ..ops.bitpack_merge import pack_rows
 from ..ops.deflate import (
     HMAX, _BitStitcher, _device, _est_block_bits_batch, _extra_bits_batch,
     _header_tokens_to_arrays, _lane_slices,
@@ -220,7 +221,7 @@ def _emit_packed(lanes, lo, hi, nb, hdr_lo, hdr_hi, hdr_nb, lit_lens,
     lo_all = torch.cat([hdr_lo.to(I64), lo, eob_lo], 1)
     hi_all = torch.cat([hdr_hi.to(I64), hi, torch.zeros_like(eob_lo)], 1)
     nb_all = torch.cat([hdr_nb.to(I32), nb, eob_nb], 1)
-    packed, total = hierarchical_pack(lo_all, hi_all, nb_all, out_max)
+    packed, total = pack_rows(lo_all, hi_all, nb_all, out_max)
     adlers = _lane_adler(lanes, enc_starts, enc_ends)
     return packed, total, _fold_adlers(adlers, enc_ends - enc_starts)
 
