@@ -60,8 +60,9 @@ audit = {"groups_checked": 0, "bit_overruns": 0}
 # seconds summed over the call, device time between CUDA events on a
 # card for spans of device work (stage1, stage2 and stage2's parts), the
 # host's clock for the others and on the CPU (frame, stitch with its
-# fetch, every `.fetch`); each counter under its name and `.n` (`syncs.n`,
-# `stage2.groups.n`, `stage2.redispatch.n`)
+# fetch, every `.fetch`, the host route's `host_encode`); each counter
+# under its name and `.n` (`syncs.n`, `stage2.groups.n`,
+# `stage2.redispatch.n`, `compress.calls.host.n`, `compress.calls.card.n`)
 stage_seconds = {"stage1": 0.0, "stage2": 0.0, "stitch": 0.0}
 
 LANE_HIST = WINDOW_SIZE          # 32768
@@ -831,15 +832,21 @@ def compress_cuda(data, level: int = 6, wbits: int = 15,
     and L9's engine), strategy 0-4, windowBits, dictionary and `tune`.
     Level 0 and inputs under 1024 bytes go to the host encoder
     (stream/deflate.py), as compress_tpu routes them; it takes no
-    `tune`."""
+    `tune`. Either route opens the call's root: the counter
+    `compress.calls.host` or `compress.calls.card` says which ran, and
+    the host route's one span, `host_encode`, waits on no card."""
     if not (-15 <= wbits <= 31):
         raise StreamError("invalid windowBits")
     _device(device)
     buf = np.frombuffer(memoryview(bytes(data)), np.uint8)
-    if level == 0 or buf.size < 1024:
-        return compress_host(buf, level=level, wbits=wbits,
-                             strategy=strategy, dictionary=dictionary)
     with _trace_mod.call("compress", _publish):
+        if level == 0 or buf.size < 1024:
+            count("compress.calls.host")
+            with span("host_encode"):
+                return compress_host(buf, level=level, wbits=wbits,
+                                     strategy=strategy,
+                                     dictionary=dictionary)
+        count("compress.calls.card")
         payload = deflate_payload_cuda(buf, level, strategy, dictionary,
                                        tune, max_dist=effective_window(wbits),
                                        device=device)
