@@ -48,7 +48,9 @@ step arrays that defeat its speculation or test its step arithmetic, on
 edge bounds, and on decode phase A's bit steps at 16 lanes of 1,048,576
 bits), stage 2's pack kernel (one launch per pack call: 2 per L6 lane
 group, 1 per quick group, counted on the main paths) at its three call
-sites on the corpus's own tokens, and last runs torch.profiler: K1's
+sites on the corpus's own tokens, stage 2's render kernel (one launch per
+render call: 1 per lane group, counted on the main paths) at its four
+call sites on the corpus's own tokens, and last runs torch.profiler: K1's
 device time per operating point (one kernel per call), K2's device time
 by phase, the plain deep probes' launches, one lane group at L6, L1 and
 Z_FIXED (with stage 1's share of its launches, counted in the same
@@ -684,11 +686,11 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
     reference's pinned digest."""
     from zlibng_tpu_torch import compress_cuda
     from zlibng_tpu_torch.ops import (
-        bitpack_merge, deflate, huffman, parse, probe,
+        bitpack, bitpack_merge, deflate, huffman, parse, probe,
     )
     name = _name(level, strategy)
     kw = dict(strategy=strategy)
-    _reset_launches("probe", "parse", "huffman", "bitpack")
+    _reset_launches("probe", "parse", "huffman", "bitpack", "render")
     t0 = time.perf_counter()
     out = compress_cuda(data, level, **kw)
     torch.cuda.synchronize()
@@ -709,6 +711,13 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
             if huf else packs)
     if packs == 0 or packs != want or st["bitpack.launches.n"] != packs:
         raise AssertionError(f"{name}: {packs} pack kernel launches, "
+                             f"expected {want}")
+    # the render kernel: one launch per auto group and redispatch, one per
+    # quick group with a coded unit (beside its one pack)
+    renders = bitpack.launches
+    want = packs // 2 if huf else packs
+    if renders != want or st["render.launches.n"] != renders:
+        raise AssertionError(f"{name}: {renders} render kernel launches, "
                              f"expected {want}")
     if zlib.decompress(out) != data:
         raise AssertionError(f"{name}: zlib round trip failed")
@@ -736,13 +745,15 @@ def main_path(data: bytes, level: int, strategy: int = 0) -> dict:
           f"(ratio {len(out) / len(data):.4f}, sha256 {digest[1]}, equal to "
           f"compress_tpu's); zlib round trip ok; equal to the CPU port on "
           f"the 1 MiB prefix and on the whole corpus ({cpu_s:.1f} s on the "
-          f"host); launches {launches}, Huffman {huf}, pack {packs}; cold "
+          f"host); launches {launches}, Huffman {huf}, pack {packs}, "
+          f"render {renders}; cold "
           f"{cold:.3f} s, warm {warm:.3f} s "
           f"= {mbs:.3f} MB/s; warm stages: stage1 {stages['stage1']:.3f} s, "
           f"stage2 {stages['stage2']:.3f} s, stitch {stages['stitch']:.3f} s",
           flush=True)
     return dict(level=level, launches=launches, huffman_launches=huf,
-                bitpack_launches=packs, size=len(out), warm_s=warm, mb_s=mbs,
+                bitpack_launches=packs, render_launches=renders,
+                size=len(out), warm_s=warm, mb_s=mbs,
                 stages=stages, stream=out)
 
 
@@ -857,6 +868,80 @@ def check_bitpack(data: bytes) -> list:
               f"{plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}, {nbytes} B)",
               flush=True)
         rows.append(dict(name=name, R=R, T=T, out_bytes=ob, ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=by, max_abs_err=0))
+    return rows
+
+
+def render_calls(fn, module) -> list:
+    """(arguments, demote, outputs) of every render_rows call that module
+    (ops/deflate.py or parallel/sharded.py) makes while fn() runs; the
+    arguments as they came (views of the call's buffers)."""
+    seen = []
+    render = module.render_rows
+
+    def record(*args, demote=False):
+        out = render(*args, demote=demote)
+        seen.append((args, demote, out))
+        return out
+    module.render_rows = record
+    try:
+        fn()
+    finally:
+        module.render_rows = render
+    return seen
+
+
+def check_render(data: bytes) -> list:
+    """Stage 2's render kernel (csrc/render.cu) at the four call sites'
+    operating points, on the corpus's own tokens: the first lane group of
+    L6 (per-unit tables, the demotion), L1 (the static tables), Z_FIXED
+    (the static tables, the demotion), and one shard's lanes of
+    compress_multichip in pigz's layout (four shards on the card, 128 KiB
+    lanes, per-lane tables). Each: the call's outputs equal to the plain
+    render run on the card, then the kernel, its device time
+    (torch.profiler) and the plain render timed per call between CUDA
+    events."""
+    from zlibng_tpu_torch import compress_cuda
+    from zlibng_tpu_torch.ops import bitpack, deflate
+    from zlibng_tpu_torch.parallel import sharded
+    points = (
+        ("L6 units", render_calls(lambda: compress_cuda(data, 6), deflate)),
+        ("L1 units", render_calls(lambda: compress_cuda(data, 1), deflate)),
+        ("Z_FIXED units", render_calls(
+            lambda: compress_cuda(data, 6, strategy=4), deflate)),
+        ("sharded lanes", render_calls(lambda: sharded.compress_multichip(
+            data, [CARD] * 4, lane_block=1 << 17), sharded)))
+    rows = []
+    for name, calls in points:
+        args, demote, got = calls[0]
+        toks, tables = args[:4], args[4:]
+
+        def plain(toks=toks, tables=tables, demote=demote):
+            return bitpack.render_tokens(*(t.flatten(0, -2) for t in toks),
+                                         *tables, demote=demote)
+        if not all(torch.equal(a, b) for a, b in zip(got, plain())):
+            raise AssertionError(f"render kernel, {name}: differs from the "
+                                 "plain render")
+        run = (lambda args=args, demote=demote:
+               bitpack._render_rows_cuda(*args, demote))
+        ms = timed(run, 50)
+        dev = device_ms(run, 50, "render_")
+        plain_ms = timed(plain, 5)
+        R, N = got[2].shape
+        # bytes: each position's byte, length, distance and selection read
+        # once, lo, hi and nbits written once; the tables read once
+        nbytes = (R * N * (2 + 2 * toks[1].element_size() + 20)
+                  + sum(t.numel() * 4 for t in tables))
+        b_ms, by = bound(nbytes, 0)
+        dev_ms = sum(dev.values()) if dev else None
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        print(f"render kernel, {name} ({R} x {N}, demote {demote}, "
+              f"{tuple(tables[0].shape)} tables, {len(calls)} calls): equal "
+              f"to plain; kernel {ms:.4f} ms per call (device {dev_txt}); "
+              f"plain {plain_ms:.2f} ms; bound {b_ms:.5f} ms ({by}, "
+              f"{nbytes} B)", flush=True)
+        rows.append(dict(name=name, R=R, N=N, demote=demote, ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=by, max_abs_err=0))
     return rows
@@ -2024,6 +2109,7 @@ def main() -> int:
     deep = phase("deep-probe timing", time_deep_probes, k1_inputs)
     huf_rows = phase("Huffman kernel check", check_huffman, data)
     bitpack_rows = phase("pack kernel check", check_bitpack, data)
+    render_rows = phase("render kernel check", check_render, data)
     lut_rows = phase("flat LUT kernel check", check_flat_luts,
                      dict(indexed, data=data))
     check_estimate(lanes)
@@ -2091,6 +2177,16 @@ def main() -> int:
                  f"{row['out_bytes']} B)", route="cuda",
             source=src + "bitpack.cu", replaces=None,
             launches=runs[6, 0]["bitpack_launches"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None,
+            device_ms=row["device_ms"]))
+    for row in render_rows:
+        kernels.append(dict(
+            name=f"render ({row['name']}, {row['R']} x {row['N']}, demote "
+                 f"{row['demote']})", route="cuda",
+            source=src + "render.cu", replaces=None,
+            launches=runs[6, 0]["render_launches"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None,

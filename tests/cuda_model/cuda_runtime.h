@@ -1,9 +1,10 @@
 // A host model of the CUDA built-ins that zlibng_tpu_torch/csrc/huffman.cu,
-// flat_luts.cu and bitpack.cu use, so that a C++20 compiler can run their
-// kernels on the CPU: a block is one std::thread per CUDA thread and
-// __syncthreads a std::barrier (huffman_model.cpp), or a block is one fiber
-// per CUDA thread on one OS thread and __syncthreads a switch back to the
-// fibers' scheduler (flat_luts_model.cpp, bitpack_model.cpp: far fewer OS
+// flat_luts.cu, bitpack.cu and render.cu use, so that a C++20 compiler can
+// run their kernels on the CPU: a block is one std::thread per CUDA thread
+// and __syncthreads a std::barrier (huffman_model.cpp), or a block is one
+// fiber per CUDA thread on one OS thread and __syncthreads a switch back to
+// the fibers' scheduler (flat_luts_model.cpp, bitpack_model.cpp,
+// render_model.cpp: far fewer OS
 // context switches for grids of thousands of blocks). __shared__ variables
 // are static (one block runs at a time), atomics are GCC's. A warp shuffle
 // is two block-wide barriers around a table of the lanes' values, so a
@@ -57,6 +58,10 @@ inline unsigned __brev(unsigned x) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+inline int __clz(int x) {
+  return x ? __builtin_clz(static_cast<unsigned>(x)) : 32;
+}
 
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);

@@ -6,7 +6,8 @@ by a hash of the source and the flags; a later process reuses it. Libraries
 are loaded with ctypes. A missing nvcc or a failed build raises: there is
 no other route to the kernels. Every kernel launches through `launch`, on
 its card's current stream, and its wrapper checks its tensors with
-`check_cuda`; a new kernel needs its `.cu` file, a `_SIGNATURES` entry
+`check_cuda` (or, for inputs read in place as row-strided views,
+`check_rows`); a new kernel needs its `.cu` file, a `_SIGNATURES` entry
 whose last argument is the stream, and a wrapper that checks its shapes,
 allocates its outputs and calls `launch`.
 """
@@ -29,17 +30,19 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("probe", "parse", "huffman", "flat_luts", "bitpack")
+KERNELS = ("probe", "parse", "huffman", "flat_luts", "bitpack", "render")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
 # C signatures: pointers as c_void_p (a bare int would be cut to 32 bits)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "probe": ("zng_probe_best", [_P] * 7 + [_I] * 10 + [_P]),
     "parse": ("zng_parse_select", [_P] * 5 + [_I] * 2 + [_P]),
     "huffman": ("zng_huff_build", [_P] * 9 + [_I] * 2 + [_P]),
     "flat_luts": ("zng_flat_luts", [_P] * 3 + [_I] * 3 + [_P]),
     "bitpack": ("zng_bitpack", [_P] * 5 + [_I] * 3 + [_P]),
+    "render": ("zng_render", [_P, _L, _L] * 4 + [_P] * 4 + [_I] + [_P] * 3
+               + [_I] * 5 + [_P]),
 }
 
 _lock = threading.Lock()
@@ -125,6 +128,25 @@ def check_cuda(what: str, *tensors, dtype=torch.int32,
             raise ValueError(f"{what} takes contiguous "
                              f"{str(dtype).removeprefix('torch.')} CUDA "
                              "tensors on one card")
+    return dev
+
+
+def check_rows(what: str, *tensors, dtypes,
+               dev: torch.device | None = None) -> torch.device:
+    """The card of `tensors`, which must be CUDA tensors on one card
+    (`dev` when given), each of one of `dtypes`, and each (R, N) or
+    (B, Q, N) rows whose elements are adjacent (unit stride inside a row;
+    the other strides as they are: views are read in place); ValueError
+    otherwise. No cast and no copy, so no launch."""
+    dev = tensors[0].device if dev is None else dev
+    for t in tensors:
+        if t.dtype not in dtypes or not t.is_cuda or t.device != dev \
+                or t.dim() not in (2, 3) \
+                or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            names = " or ".join(str(d).removeprefix("torch.")
+                                for d in dtypes)
+            raise ValueError(f"{what} takes {names} CUDA tensors on one "
+                             "card, (R, N) or (B, Q, N) rows of unit stride")
     return dev
 
 

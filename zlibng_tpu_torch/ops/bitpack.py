@@ -2,8 +2,11 @@
 `zlibng_tpu/ops/bitpack_jax.py`), and the device copies of the constant
 code tables every compress route reads.
 
-A token's bits (<= 55) are held as two u32 halves (lo, hi) in int64
-tensors, so shifts never wrap differently on CPU and CUDA.
+`render_rows` is the render of every compress route: on CUDA tensors one
+launch of the hand-written kernel `csrc/render.cu`, which reads its inputs
+in place; on CPU tensors `render_tokens`, the plain version, which stays
+its readable twin. A token's bits (<= 55) are held as two u32 halves (lo,
+hi) in int64 tensors, so shifts never wrap differently on CPU and CUDA.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from ..format.constants import (
     FIXED_DIST_LENGTHS, FIXED_LIT_CODES_REV, FIXED_LIT_LENGTHS, LENGTH_BASE,
     LENGTH_EXTRA, REP_3_6, REPZ_3_10, REPZ_11_138,
 )
+from .. import _build
 from ..trace import upload
 from .lz77 import (
     dist_code_arith, dist_extra_arith, length_code_arith, length_extra_arith,
@@ -24,6 +28,10 @@ from .lz77 import (
 
 I32 = torch.int32
 _M32 = 0xFFFFFFFF
+LIT_SYMS, DIST_SYMS = 288, 30    # code table widths
+
+# `launches`: render kernel launches so far (`_build.launches`)
+__getattr__ = _build.launch_count("render")
 
 # extra bits of each literal/length symbol (0 below 257) and distance symbol
 LEXT = np.zeros(286, np.int32)
@@ -132,6 +140,65 @@ def render_tokens(lits, tok_len, tok_dist, sel, lit_lens, lit_codes,
     lo, hi = _or_field(lo, hi, torch.where(is_match, dv_, 0), sh)
     nbits = torch.where(sel, n0 + le + dn + de, 0).to(I32)
     return torch.where(sel, lo, 0), torch.where(sel, hi, 0), nbits
+
+
+def render_rows(lits, tok_len, tok_dist, sel, lit_lens, lit_codes,
+                dist_lens, dist_codes, demote: bool = False):
+    """`render_tokens` by device, on (R, N) rows or (B, Q, N) units (row
+    b * Q + q): lits uint8, tok_len and tok_dist int32 or int64 alike, sel
+    bool, all of one shape; code tables as there. CUDA tensors: one launch
+    of the kernel `csrc/render.cu` on the current stream (or it raises),
+    which reads the four token inputs as they are, views with rows of unit
+    stride included; CPU tensors: `render_tokens`; any other device raises.
+    The two are equal bit for bit. Returns (lo, hi, nbits), each (R, N)."""
+    if sel.is_cuda:
+        return _render_rows_cuda(lits, tok_len, tok_dist, sel, lit_lens,
+                                 lit_codes, dist_lens, dist_codes, demote)
+    if sel.device.type != "cpu":
+        raise ValueError(f"render_rows: unsupported device {sel.device}")
+    return render_tokens(*(t.flatten(0, -2) for t in (lits, tok_len,
+                                                      tok_dist, sel)),
+                         lit_lens, lit_codes, dist_lens, dist_codes, demote)
+
+
+def _render_rows_cuda(lits, tok_len, tok_dist, sel, lit_lens, lit_codes,
+                      dist_lens, dist_codes, demote: bool):
+    """Runs the kernel on CUDA tensors, read as they are (no cast, no
+    copy): one launch, checking only what needs no wait for the card."""
+    toks = (lits, tok_len, tok_dist, sel)
+    if sel.dim() not in (2, 3) or any(t.shape != sel.shape for t in toks):
+        raise ValueError("render kernel: lits, tok_len, tok_dist and sel "
+                         "must be (R, N) or (B, Q, N) alike")
+    *lead, N = sel.shape
+    upl = lead[1] if len(lead) == 2 else 1        # units a lane
+    R = lead[0] * upl
+    per_row = lit_lens.dim() == 2
+    rows = (R,) if per_row else ()
+    if any(t.shape != (*rows, LIT_SYMS) for t in (lit_lens, lit_codes)) \
+            or any(t.shape != (*rows, DIST_SYMS)
+                   for t in (dist_lens, dist_codes)):
+        raise ValueError(f"render kernel: code tables must be (288,) and "
+                         f"(30,), or ({R}, 288) and ({R}, 30), alike")
+    if tok_len.dtype != tok_dist.dtype or R >= 1 << 31 or N >= 1 << 31:
+        raise ValueError("render kernel: tok_len and tok_dist of one dtype, "
+                         "R and N below 2^31")
+    dev = _build.check_rows("render kernel", lits, dtypes=(torch.uint8,))
+    _build.check_rows("render kernel", tok_len, tok_dist,
+                      dtypes=(torch.int32, torch.int64), dev=dev)
+    _build.check_rows("render kernel", sel, dtypes=(torch.bool,), dev=dev)
+    _build.check_cuda("render kernel", lit_lens, lit_codes, dist_lens,
+                      dist_codes, dev=dev)
+    lo = torch.empty((R, N), dtype=torch.int64, device=dev)
+    hi = torch.empty((R, N), dtype=torch.int64, device=dev)
+    nbits = torch.empty((R, N), dtype=I32, device=dev)
+    if R and N:
+        views = []
+        for t in toks:    # each input's lane and unit strides
+            views += [t, t.stride(0), t.stride(1) if t.dim() == 3 else 0]
+        _build.launch("render", dev, *views, lit_lens, lit_codes, dist_lens,
+                      dist_codes, int(per_row), lo, hi, nbits, R, N, upl,
+                      int(tok_len.dtype == torch.int64), int(demote))
+    return lo, hi, nbits
 
 
 def render_body_tokens(tok_len, tok_dist, lsym, dsym, sel, lit_lens,

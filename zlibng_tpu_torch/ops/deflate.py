@@ -10,7 +10,8 @@ Counterpart of `zlibng_tpu/ops/deflate_tpu.py`:
   device: stage 2, auto — block partition (entropy-estimate DP), exact
           Huffman tables + dynamic headers [ops/huffman.py; one kernel
           per group, csrc/huffman.cu, on the card], block-type
-          choice from exact bits, token render [ops/bitpack.py] + bit
+          choice from exact bits, token render [ops/bitpack.py; one
+          kernel per render call, csrc/render.cu, on the card] + bit
           pack [ops/bitpack_merge.py; one kernel per pack call,
           csrc/bitpack.cu, on the card]; or the fixed-tree quick path (L1
           and Z_FIXED): each unit's exact static bits from stage 1, the
@@ -44,7 +45,7 @@ from ..stream.deflate import (
 )
 from ..stream.deflate import compress as compress_host
 from ..trace import count, fetch, span, trace, upload
-from .bitpack import DEXT, LEXT, code_tables, render_tokens
+from .bitpack import DEXT, LEXT, code_tables, render_rows
 from .bitpack_merge import pack_rows
 from .huffman import huff_build
 from .lz77 import finalize_tokens, lz77_lane, unit_freqs
@@ -108,6 +109,18 @@ def _lane_slices(flat: torch.Tensor, first: int, stride: int, length: int,
     top = flat.shape[0] - length
     return torch.stack([flat[min(first + i * stride, top):][:length]
                         for i in range(count)])
+
+
+def _payload_units(flat: torch.Tensor, B: int,
+                   lane_block: int) -> torch.Tensor:
+    """(B, qpl, UNIT) units of the payload of a group's B lanes: a view of
+    `flat` where every lane lies in it, else `_lane_slices`' copy (pad
+    lanes past the upload read clamped bytes; they select nothing)."""
+    if flat.shape[0] >= LANE_HIST + B * lane_block:
+        pay = flat[LANE_HIST: LANE_HIST + B * lane_block]
+    else:
+        pay = _lane_slices(flat, LANE_HIST, lane_block, lane_block, B)
+    return pay.reshape(B, lane_block // UNIT, UNIT)
 
 
 def _stage1(flat, enc_ends, hist_valids, lane_block, chain, lazy, max_lazy,
@@ -222,9 +235,8 @@ def _lane_stage2_auto(pay, tlq, tdq, seq, lfreq_u, dfreq_u, unit_lens,
         lc_u = torch.where(dynsel, torch.cat([lcode_b, z2], 1), C["flc"])
         dt_u = torch.where(dynsel, dlen_b, C["fdl"])
         dc_u = torch.where(dynsel, dcode_b, C["fdc"])
-        body = render_tokens(
-            pay.reshape(G, UNIT), tlq.reshape(G, UNIT), tdq.reshape(G, UNIT),
-            seq.reshape(G, UNIT), lt_u, lc_u, dt_u, dc_u, demote=True)
+        body = render_rows(pay, tlq, tdq, seq, lt_u, lc_u, dt_u, dc_u,
+                           demote=True)
 
         # ---- per-unit header tokens (first-of-block only) ---------------
         first_q = first_q.reshape(G)
@@ -336,11 +348,9 @@ def _stage2_auto(flat, tok_len, tok_dist, sel, lfreqs, dfreqs, enc_ends,
     [body_bits, hdr_bits, desc])."""
     qpl = lane_block // UNIT
     B = tok_len.shape[0]
-    pay = _lane_slices(flat, LANE_HIST, lane_block, lane_block,
-                       B).reshape(B, qpl, UNIT)
-    tlq = tok_len[:, LANE_HIST:].to(I32).reshape(B, qpl, UNIT)
-    tdq = tok_dist[:, LANE_HIST:].to(I32).reshape(B, qpl, UNIT)
-    seq = sel[:, LANE_HIST:].reshape(B, qpl, UNIT)
+    pay = _payload_units(flat, B, lane_block)
+    tlq, tdq, seq = (t[:, LANE_HIST:].view(B, qpl, UNIT)
+                     for t in (tok_len, tok_dist, sel))
     qoff = torch.arange(qpl, dtype=I32, device=flat.device) * UNIT
     unit_lens = (enc_ends.to(I32)[:, None] - LANE_HIST - qoff).clamp(0, UNIT)
     return _lane_stage2_auto(pay, tlq, tdq, seq, lfreqs, dfreqs, unit_lens,
@@ -356,14 +366,13 @@ def _stage2_fixed(flat, tok_len, tok_dist, sel, lane_block: int,
     out_bytes) uint8, totals (B, qpl) int32 body bits)."""
     qpl = lane_block // UNIT
     B = tok_len.shape[0]
-    G = B * qpl
     dev = flat.device
-    pay = _lane_slices(flat, LANE_HIST, lane_block, lane_block, B)
+    pay = _payload_units(flat, B, lane_block)
     C = code_tables(dev)
     with span("stage2.render", dev):
-        fields = render_tokens(
-            pay.reshape(G, UNIT), *(t[:, LANE_HIST:].reshape(G, UNIT)
-                                    for t in (tok_len, tok_dist, sel)),
+        fields = render_rows(
+            pay, *(t[:, LANE_HIST:].view(B, qpl, UNIT)
+                   for t in (tok_len, tok_dist, sel)),
             C["fl288"], C["flc"], C["fdl"], C["fdc"], demote=demote)
     with span("stage2.pack", dev):
         packed, totals = pack_rows(*fields, out_bytes)

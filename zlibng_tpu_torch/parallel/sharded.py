@@ -21,8 +21,9 @@ not. A device may repeat (`[cuda:0] * 8` runs eight shards on one card).
   * decode runs phase A lanes and phase B segments across the shards
     through the wave engine's seams (`ops/inflate.py:_decode_segments`).
 
-On a card every shard reaches K1, K2 and the pack (`pack_rows`, one
-launch of `csrc/bitpack.cu` per shard and step) through their wrappers,
+On a card every shard reaches K1, K2, the render (`render_rows`, one
+launch of `csrc/render.cu` per shard and step) and the pack (`pack_rows`,
+one launch of `csrc/bitpack.cu` per shard and step) through their wrappers,
 which launch the CUDA kernels for CUDA tensors; CPU shards run the plain
 versions.
 
@@ -53,7 +54,7 @@ from ..format.constants import (
 from ..huffman.encode import build_dynamic_header, huffman_table
 from ..ops import deflate as _deflate
 from ..ops import inflate as IT
-from ..ops.bitpack import code_tables, render_tokens
+from ..ops.bitpack import code_tables, render_rows
 from ..ops.bitpack_merge import pack_rows
 from ..ops.deflate import (
     HMAX, _BitStitcher, _device, _est_block_bits_batch, _extra_bits_batch,
@@ -246,9 +247,9 @@ def make_compress_step(shards: Shards, lane_size: int, out_max: int,
         sel = parse_select_encode(core["step"], bounds)
         outs = finalize_tokens(lanes, core, sel)
         C = code_tables(dev)
-        lo, hi, nb = render_tokens(lanes, outs["tok_len"], outs["tok_dist"],
-                                   outs["sel"], C["fl288"], C["flc"],
-                                   C["fdl"], C["fdc"])
+        lo, hi, nb = render_rows(lanes, outs["tok_len"], outs["tok_dist"],
+                                 outs["sel"], C["fl288"], C["flc"],
+                                 C["fdl"], C["fdc"])
         # static block header (BFINAL=0 within shards) + EOB
         hdr_lo = torch.full((B, 1), 2, dtype=I64, device=dev)
         hdr_nb = torch.full((B, 1), 3, dtype=I32, device=dev)
@@ -324,7 +325,7 @@ def make_stage2_step(shards: Shards, out_max: int, lane_block: int,
 
     def shard_fn(flat, tl, td, se, hlo, hhi, hnb, lt, lc, dt, dc, es, ee):
         lanes = _lane_slices(flat[0], 0, lane_block, lane_sz, es.shape[0])
-        lo, hi, nb = render_tokens(lanes, tl, td, se, lt, lc, dt, dc)
+        lo, hi, nb = render_rows(lanes, tl, td, se, lt, lc, dt, dc)
         return _emit_packed(lanes, lo, hi, nb, hlo, hhi, hnb, lt, lc, es, ee,
                             out_max)
 
